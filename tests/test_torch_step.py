@@ -1,0 +1,227 @@
+"""The slice as a whole: the port's NSLevel.advance against the JAX
+package's from the same state.
+
+  * 3D lock exchange 16x8x8 (the __graft_entry__ level), after 1 and 5
+    steps: max|diff| <= 1e-4 max|field| in f32, <= 1e-10 in f64 (the JAX
+    reference runs with jax_enable_x64);
+  * 2D Taylor-Green 32x32: the port's error against the exact solution is
+    within 1% of the JAX package's;
+  * compute_dt and total_energy on one state agree to 1e-6 relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from somar_tpu.core.grid import Grid as JGrid
+from somar_tpu.geometry.geo_source import CartesianMap as JCartesian
+from somar_tpu.geometry.level_geometry import build_level_geometry as jgeo
+from somar_tpu.physics.navier_stokes import NSLevel as JLevel
+from somar_tpu.physics.navier_stokes import NSParams as JParams
+from somar_tpu.problems.base import LinearProfile as JLinear
+from somar_tpu.problems.base import SpongeSpec as JSponge
+from somar_tpu.problems.base import TidalSpec as JTidal
+from somar_tpu.problems.lock_exchange import LockExchange as JLock
+from somar_tpu.problems.taylor_green import TaylorGreen as JTG
+from somar_tpu.solvers.multigrid import MGParams as JMG
+
+from somar_tpu_torch import entry
+from somar_tpu_torch.core.bc import BC, FieldBCs
+from somar_tpu_torch.core.grid import Grid as TGrid
+from somar_tpu_torch.geometry.geo_source import CartesianMap as TCartesian
+from somar_tpu_torch.geometry.level_geometry import build_level_geometry as tgeo
+from somar_tpu_torch.physics.navier_stokes import NSLevel as TLevel
+from somar_tpu_torch.physics.navier_stokes import NSParams as TParams
+from somar_tpu_torch.problems.base import LinearProfile as TLinear
+from somar_tpu_torch.problems.base import SpongeSpec as TSponge
+from somar_tpu_torch.problems.base import TidalSpec as TTidal
+from somar_tpu_torch.problems.lock_exchange import LockExchange as TLock
+from somar_tpu_torch.problems.taylor_green import TaylorGreen as TTG
+
+torch.set_num_threads(1)
+
+FIELDS = ("vel", "scalars", "lam", "pressure")
+NSTEPS = 5
+DT = 0.02
+TOL = {"f32": 1e-4, "f64": 1e-10}
+
+
+def _jax_lock_level(dtype):
+    """__graft_entry__._build_level(nx=16, nz=8, ny=8) at `dtype`."""
+    grid = JGrid(nx=(16, 8, 8), dx=(15 / 16, 2 / 8, 2 / 8),
+                 x0=(-7.5, 0.0, 0.0), periodic=(False, True, False))
+    params = JParams(nu=1e-4, kappa=(1e-4,), gravity_method=1, cfl=0.9,
+                     mg=JMG(eps=1e-5, imax=12), dtype=dtype)
+    return JLevel(jgeo(grid, JCartesian(), dtype=dtype), JLock(), params)
+
+
+def _np_state(state):
+    return {f: np.asarray(getattr(state, f)) for f in entry.STATE_FIELDS}
+
+
+def _trajectories(prec):
+    """States after each of NSTEPS steps, JAX and port, from the JAX
+    package's post-initialized state."""
+    jdtype = jnp.float64 if prec == "f64" else jnp.float32
+    tdtype = torch.float64 if prec == "f64" else torch.float32
+    if prec == "f64":
+        jax.config.update("jax_enable_x64", True)
+    try:
+        jl = _jax_lock_level(jdtype)
+        js = jl.post_initialize(jl.initial_state())
+        tl, _ = entry.build_level(nx=16, nz=8, ny=8, dtype=tdtype)
+        ts = entry.ns_state_from_numpy(_np_state(js), dtype=tdtype)
+        step = jax.jit(lambda s, d: jl.advance(s, d))
+        out = []
+        for _ in range(NSTEPS):
+            js = step(js, jnp.asarray(DT, jdtype))
+            ts = tl.advance(ts, DT)
+            out.append((_np_state(js), entry.ns_state_to_numpy(ts)))
+        return out
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    return {prec: _trajectories(prec) for prec in ("f32", "f64")}
+
+
+@pytest.mark.parametrize("after", [1, NSTEPS])
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_lock_exchange_step_matches_jax(trajectories, prec, after):
+    want, got = trajectories[prec][after - 1]
+    assert got["vel"].dtype == (np.float64 if prec == "f64" else np.float32)
+    for f in FIELDS:
+        scale = np.abs(want[f]).max()
+        err = np.abs(got[f] - want[f]).max()
+        assert err <= TOL[prec] * scale, (prec, after, f, err, scale)
+    np.testing.assert_allclose(got["time"], want["time"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+def test_compute_dt_and_total_energy_match_jax(trajectories, prec):
+    """On one state (the JAX 5-step state carried into the port).  In f32
+    the JAX package's own energy reduction is ~1e-6 off the float64 sum
+    of the same state, so there the port is held to that sum at 1e-6 and
+    to JAX at 2e-6."""
+    jdtype = jnp.float64 if prec == "f64" else jnp.float32
+    tdtype = torch.float64 if prec == "f64" else torch.float32
+    fields, _ = trajectories[prec][-1]
+    if prec == "f64":
+        jax.config.update("jax_enable_x64", True)
+    try:
+        jl = _jax_lock_level(jdtype)
+        js = type(jl.initial_state())(**{f: jnp.asarray(v)
+                                         for f, v in fields.items()})
+        j_dt = float(jl.compute_dt(js))
+        j_energy = float(jl.total_energy(js))
+        j_div = float(jl.max_divergence(js))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    tl, _ = entry.build_level(nx=16, nz=8, ny=8, dtype=tdtype)
+    ts = entry.ns_state_from_numpy(fields, dtype=tdtype)
+    np.testing.assert_allclose(tl.compute_dt(ts), j_dt, rtol=1e-6)
+    energy = float(tl.total_energy(ts))
+    if prec == "f64":
+        np.testing.assert_allclose(energy, j_energy, rtol=1e-6)
+    else:
+        vel = fields["vel"].astype(np.float64)
+        z = tl._z_cc.double().numpy()
+        exact = np.sum(0.5 * np.sum(vel * vel, axis=0)
+                       + fields["scalars"][0].astype(np.float64) * z) \
+            * np.prod(tl.grid.dx)
+        np.testing.assert_allclose(energy, exact, rtol=1e-6)
+        np.testing.assert_allclose(energy, j_energy, rtol=2e-6)
+    np.testing.assert_allclose(float(tl.max_divergence(ts)), j_div,
+                               rtol=1e-4)
+
+
+def test_taylor_green_error_matches_jax():
+    """2D viscous Taylor-Green 32x32, 8 steps (the coarse run of
+    tests/test_taylor_green.py): the port's max error against the exact
+    solution is within 1% of the JAX package's."""
+    n, nu, nsteps = 32, 1e-2, 8
+    dt = 0.04 / nsteps
+    kw = dict(nx=(n, n), dx=(1.0 / n,) * 2, periodic=(True, True))
+    jg, tg = jgeo(JGrid(**kw), JCartesian()), tgeo(TGrid(**kw), TCartesian())
+    jprob, tprob = JTG(nu=nu), TTG(nu=nu)
+    jl = JLevel(jg, jprob, JParams(nu=nu, kappa=(0.0,), gravity_method=0,
+                                   fixed_dt=dt, mg=JMG(eps=1e-6, imax=25)))
+    tl = TLevel(tg, tprob, TParams(nu=nu, kappa=(0.0,), gravity_method=0,
+                                   fixed_dt=dt))
+    js = jl.post_initialize(jl.initial_state())
+    ts = entry.ns_state_from_numpy(_np_state(js))
+    step = jax.jit(lambda s: jl.advance(s, jnp.asarray(dt)))
+    for _ in range(nsteps):
+        js = step(js)
+        ts = tl.advance(ts, tl.compute_dt(ts))
+    exact = tprob.vel_soln(tg, float(ts.time))
+    e_t = float(np.abs(ts.vel.numpy() - exact).max())
+    e_j = float(np.abs(np.asarray(js.vel) - exact).max())
+    assert e_t < 5e-3 and abs(e_t - e_j) <= 0.01 * e_j, (e_t, e_j)
+
+
+def test_forced_lock_exchange_matches_jax():
+    """A 2D lock exchange with the forcing terms the lock exchange itself
+    leaves off: a linear background stratification (w N^2 source),
+    sponge layers and tidal forcing, 3 steps at 1e-4 max|field|."""
+    def forced(base, linear, sponge, tidal):
+        class Forced(base):
+            use_background_scalar = True
+            background = linear(0.0, -0.5)
+            def __init__(self):
+                super().__init__(pert_amp=0.0)
+                self.sponge = sponge(width_lo=(0.1, 0.0),
+                                     width_hi=(0.15, 0.2))
+                self.tidal = tidal(u0=(0.05,), omega=2.0)
+        return Forced()
+
+    kw = dict(nx=(32, 16), dx=(15 / 32, 2 / 16), x0=(-7.5, 0.0))
+    jl = JLevel(jgeo(JGrid(**kw), JCartesian()),
+                forced(JLock, JLinear, JSponge, JTidal),
+                JParams(nu=1e-3, kappa=(1e-3,), gravity_method=1))
+    tl = TLevel(tgeo(TGrid(**kw), TCartesian()),
+                forced(TLock, TLinear, TSponge, TTidal),
+                TParams(nu=1e-3, kappa=(1e-3,), gravity_method=1))
+    js = jl.post_initialize(jl.initial_state())
+    ts = entry.ns_state_from_numpy(_np_state(js))
+    step = jax.jit(lambda s, d: jl.advance(s, d))
+    for _ in range(3):
+        js = step(js, jnp.asarray(DT, jnp.float32))
+        ts = tl.advance(ts, DT)
+    want, got = _np_state(js), entry.ns_state_to_numpy(ts)
+    for f in FIELDS:
+        scale = np.abs(want[f]).max()
+        assert np.abs(got[f] - want[f]).max() <= 1e-4 * scale, f
+
+
+def test_entry_run_3d_steps_finite():
+    """The RunDriver-style loop on a small 3D level: finite fields, every
+    step's dt from compute_dt, time advanced by their sum."""
+    level, _ = entry.build_level(nx=16, nz=8, ny=8)
+    dts = []
+    state = entry.run(level, level.initial_state(), 3,
+                      on_step=lambda i, s, dt: dts.append(dt))
+    assert len(dts) == 4 and all(dt > 0 for dt in dts)
+    np.testing.assert_allclose(float(state.time), sum(dts[1:]), rtol=1e-5)
+    for f in FIELDS:
+        assert torch.isfinite(getattr(state, f)).all(), f
+
+
+def test_unported_configurations_raise():
+    geo = tgeo(TGrid(nx=(16, 8), dx=(1 / 16, 1 / 8)), TCartesian())
+    prob = TLock(pert_amp=0.0)
+    for params in (TParams(update_scheme="rk3"), TParams(gravity_method=2),
+                   TParams(pressure_solver="mg")):
+        with pytest.raises(NotImplementedError):
+            TLevel(geo, prob, params)
+
+    class TimeBCs(TLock):
+        def scalar_bcs(self, grid):
+            return FieldBCs.from_periodic(grid, BC.dirichlet(lambda t: t))
+
+    with pytest.raises(NotImplementedError):
+        TLevel(geo, TimeBCs(), TParams())
