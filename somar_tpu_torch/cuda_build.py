@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each library is compiled with `nvcc` from the package's `csrc/` sources
+Each library (`somar_ctu`: the CTU kernels K1-K4; `somar_gsrb`: the GSRB
+kernels K5-K6) is compiled with `nvcc` from the package's `csrc/` sources
 into a shared object with a plain C interface and loaded with ctypes.  The
 build is keyed by a hash of the sources and the flags and cached under
 `build/somar_tpu_torch/` at the repository root (git-ignored), so the first
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -51,26 +52,47 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile (once per source hash) and load `lib<name>.so`.  The
-    compiler's output, including ptxas register and spill counts, is kept
-    beside the library as `<lib>.log`.  Raises RuntimeError with the
-    compiler's output when the build fails."""
-    if name in _loaded:
-        return _loaded[name]
-    paths = [CSRC_DIR / s for s in sources]
-    so = BUILD_DIR / f"lib{name}-{_digest(paths)}.so"
-    if not so.is_file():
+def _library_path(name: str, sources: Sequence[str]) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest([CSRC_DIR / s for s in sources])}.so"
+
+
+def build_libraries(libs: Mapping[str, Sequence[str]]) -> None:
+    """Compile every library of {name: sources} that is not built yet, one
+    `nvcc` per library, all started together.  The compiler's output,
+    including ptxas register and spill counts, is kept beside each library
+    as `<lib>.log`.  Raises RuntimeError with the compiler's output when a
+    build fails."""
+    running = []
+    for name, sources in libs.items():
+        so = _library_path(name, sources)
+        if so.is_file():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(CSRC_DIR / s) for s in sources)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, so, tmp, cmd, proc))
+    failed = []
+    for name, so, tmp, cmd, proc in running:
+        out, err = proc.communicate()
+        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        os.replace(tmp, so)
+            failed.append(f"nvcc failed for {name}:\n{err}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Compile (once per source hash) and load `lib<name>.so`."""
+    if name in _loaded:
+        return _loaded[name]
+    build_libraries({name: sources})
+    so = _library_path(name, sources)
     lib = ctypes.CDLL(str(so))
     _logs[name] = so.with_suffix(".log")
     _loaded[name] = lib

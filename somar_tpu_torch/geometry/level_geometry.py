@@ -86,9 +86,22 @@ class LevelGeometry:
             np.asarray(self.geo.phys_coor(mu, xi)) for mu in range(self.ndim))
 
 
-def build_level_geometry(grid: Grid, geo: GeoSource, *, device="cpu",
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device that is not there raises
+    (nothing carries on on the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but no CUDA device is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return device
+
+
+def build_level_geometry(grid: Grid, geo: GeoSource, *, device="cuda",
                          dtype=torch.float32) -> LevelGeometry:
-    """The level's metric on `device`, stored as `dtype`."""
+    """The level's metric on `device` (the GPU unless told otherwise),
+    stored as `dtype`."""
+    device = require_device(device)
     if not geo.is_uniform:
         raise NotImplementedError(
             "mapped metrics are ported in slice 3, see ROADMAP")

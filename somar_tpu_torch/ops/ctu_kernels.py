@@ -37,8 +37,8 @@ import torch
 from somar_tpu_torch import cuda_build
 from somar_tpu_torch.ops.stencil import shift_m, shift_p
 
-_LIB_NAME = "somar_ctu"
-_SOURCES = ("ctu_kernels.cu",)
+#: (library name, sources under csrc/) for cuda_build
+LIBRARY = ("somar_ctu", ("ctu_kernels.cu",))
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_FIELDS = 4   # kMaxFields of csrc/ctu_kernels.cu
 
@@ -151,7 +151,7 @@ _INT = ctypes.c_int
 def load():
     """Build (first use only) and load the kernels' shared library, with
     every entry point's argument types declared."""
-    lib = cuda_build.load_library(_LIB_NAME, _SOURCES)
+    lib = cuda_build.load_library(*LIBRARY)
     if getattr(lib, "_somar_declared", False):
         return lib
     for suf, sc in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):

@@ -13,18 +13,19 @@ One step (`NSLevel.advance`):
 
 Velocity is stored in the Cartesian basis at cell centers.  The step takes
 dt as a Python float, so no kernel argument forces a device sync;
-`compute_dt` is the one host read per step.
+`compute_dt` is one host read per step; the iterative solvers add one per
+V-cycle and one per BiCGStab iteration (solvers/host_reads.py).
 
-This slice runs uniform Cartesian levels with spectral pressure and heat
-solves.  Implicit gravity (gravity_method=2), the RK3 scheme, mapped
-metrics, time-dependent BCs and the internal-wave dt limit raise
-NotImplementedError.
+Uniform Cartesian levels run with spectral, multigrid or BiCGStab
+pressure solves and spectral or multigrid heat solves.  Implicit gravity
+(gravity_method=2), the RK3 scheme, mapped metrics, time-dependent BCs and
+the internal-wave dt limit raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from somar_tpu_torch.physics.godunov import (
     riemann_from_states, trace_face_states)
 from somar_tpu_torch.problems.base import Problem, sponge_ramp, tidal_source
 from somar_tpu_torch.projection.projector import LevelProjector
+from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.multigrid import MGParams
 from somar_tpu_torch.solvers.parabolic import (
     BatchedSpectralHeat, make_heat_solver)
@@ -69,8 +71,14 @@ class NSParams:
     advection_vel: AdvectionParams = AdvectionParams(use_limiting=False)
     advection_scal: AdvectionParams = AdvectionParams(use_limiting=True)
     mg: MGParams = MGParams()
+    #: per-solver MG/bottom overrides; None falls back to `mg`
+    mg_mac: Optional[MGParams] = None
+    mg_cc: Optional[MGParams] = None
+    mg_viscous: Optional[MGParams] = None
+    mg_diffusive: Optional[MGParams] = None
     is_incompressible: bool = True
-    pressure_solver: str = "auto"         # "auto" | "fft" in this slice
+    #: "auto" (spectral where it applies, else MG) | "fft" | "mg" | "bicgstab"
+    pressure_solver: str = "auto"
     level_projection_iters: int = 1
     dtype: torch.dtype = torch.float32
 
@@ -137,16 +145,26 @@ class NSLevel:
             raise NotImplementedError(
                 "time-dependent BC values are not ported yet, see ROADMAP")
 
-        self.projector = LevelProjector(geo, method=params.pressure_solver,
+        mg_purposes = {k: v for k, v in (("mac", params.mg_mac),
+                                         ("cc", params.mg_cc))
+                       if v is not None}
+        self.projector = LevelProjector(geo, mg_params=params.mg,
+                                        mg_params_by_purpose=mg_purposes,
+                                        method=params.pressure_solver,
                                         dtype=dtype)
 
         if self.is_viscous:
-            # one batched spectral solve for all velocity components (same
-            # scheme and nu, per-component BCs)
-            self._visc_batched = BatchedSpectralHeat([
+            self.visc_solvers = [
                 make_heat_solver(params.viscous_solver_type, geo,
-                                 self.vel_bcs_visc[m], params.nu, dtype)
-                for m in range(ndim)])
+                                 self.vel_bcs_visc[m], params.nu,
+                                 params.mg_viscous or params.mg, dtype)
+                for m in range(ndim)]
+            # one batched spectral solve for all velocity components (same
+            # scheme and nu, per-component BCs) where every component has a
+            # spectral path; else the per-component solvers
+            self._visc_batched = (
+                BatchedSpectralHeat(self.visc_solvers)
+                if BatchedSpectralHeat.supports(self.visc_solvers) else None)
         diff_bcs = getattr(problem, "diffusive_solve_bcs", None)
         diff_bcs = diff_bcs(grid) if callable(diff_bcs) else \
             FieldBCs.from_periodic(grid, BC.neumann(0.0))
@@ -155,7 +173,8 @@ class NSLevel:
             kap = params.kappa[comp] if comp < len(params.kappa) else 0.0
             self.diff_solvers.append(
                 make_heat_solver(params.diffusive_solver_type, geo, diff_bcs,
-                                 kap, dtype)
+                                 kap, params.mg_diffusive or params.mg,
+                                 dtype)
                 if kap > 0.0 else None)
 
         # Laplacian op for the explicit viscous source
@@ -375,17 +394,25 @@ class NSLevel:
             if sponge_v is not None:
                 force = force + sponge_v[m]
             total_src = -advs[m] + force
-            new_vel.append(total_src if self.is_viscous
-                           else state.vel[m] + dt * total_src)
-        if self.is_viscous:
+            if self.is_viscous and self._visc_batched is not None:
+                new_vel.append(total_src)   # stacked + solved below
+            elif self.is_viscous:
+                u_new, _ = self.visc_solvers[m].update(state.vel[m],
+                                                       total_src, dt)
+                new_vel.append(u_new)
+            else:
+                new_vel.append(state.vel[m] + dt * total_src)
+        if self.is_viscous and self._visc_batched is not None:
             return self._visc_batched.update(state.vel, torch.stack(new_vel),
                                              dt)
         return torch.stack(new_vel)
 
     # ------------------------------------------------------------ advance
-    def advance(self, state: NSState, dt: float) -> NSState:
+    def advance(self, state: NSState, dt: float,
+                diag: Optional[dict] = None) -> NSState:
         """One PPM predictor-corrector time step of length dt (a Python
-        float)."""
+        float).  A dict passed as `diag` receives "max_mac_div", the max
+        |divergence| of the projected advecting velocity (a 0-d tensor)."""
         p = self.params
         grid = self.grid
         ndim = grid.ndim
@@ -422,6 +449,8 @@ class NSLevel:
         adv_vel, mac_phi = self.compute_advecting_velocities(
             state, src_vel, dt, tmp)
         tmp.adv_valid = adv_vel
+        if diag is not None:
+            diag["max_mac_div"] = mac_divergence(adv_vel, self.geo).abs().max()
         tmp.adv_pad = tuple(pad_valid_faces(adv_vel[d], grid, d)
                             for d in range(ndim))
 
@@ -467,7 +496,7 @@ class NSLevel:
                 dphi = torch.diff(state.cc_phi, dim=grid.axis(d)).abs().max()
                 dt = torch.minimum(
                     dt, grid.dx[d] / torch.sqrt(torch.clamp_min(dphi, 1e-30)))
-        return float(torch.clamp_max(dt, p.max_dt).to(p.dtype))
+        return read_scalars(torch.clamp_max(dt, p.max_dt).to(p.dtype))[0]
 
     # --------------------------------------------------------- diagnostics
     def total_energy(self, state: NSState):

@@ -1,11 +1,12 @@
 """Implicit viscous/diffusive integrators: Backward Euler, Crank-Nicolson,
 TGA (PyTorch port of `somar_tpu.solvers.parabolic`).
 
-Each scheme advances  ds/dt = kappa * L s + S  one step.  This slice ports
-the spectral branch: on uniform grids with homogeneous BCs every factor of
-each scheme is diagonal in the FFTPoissonSolver eigenbasis, so an update is
-one forward and one inverse transform.  Configurations that need the
-multigrid branch raise NotImplementedError (multigrid is slice 2).
+Each scheme advances  ds/dt = kappa * L s + S  one step by one or two
+Helmholtz solves  (I - c*dt*kappa*L) s_new = rhs.  On uniform grids with
+homogeneous BCs every factor of each scheme is diagonal in the
+FFTPoissonSolver eigenbasis, so an update is one forward and one inverse
+transform; elsewhere (e.g. inhomogeneous Dirichlet values) each solve is a
+LevelMultigrid Helmholtz solve, warm-started from the old field.
 """
 
 from __future__ import annotations
@@ -17,26 +18,46 @@ import torch
 from somar_tpu_torch.core.bc import FieldBCs
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 from somar_tpu_torch.solvers.fft_poisson import FFTPoissonSolver, axis_transform
+from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
+from somar_tpu_torch.solvers.poisson_op import PoissonOp
 
 
 class BaseHeatSolver:
-    """Shared machinery: Helmholtz solves (I - c*dt*kappa*L) s = rhs."""
+    """Shared machinery: Helmholtz solves (I - c*dt*kappa*L) s = rhs,
+    spectral where the BCs and the metric allow it, else multigrid.  One
+    MG hierarchy serves every coefficient: alpha/beta are call-time
+    operands of LevelMultigrid.solve."""
 
     def __init__(self, geo: LevelGeometry, bcs: FieldBCs, kappa: float,
-                 dtype=torch.float32):
+                 mg_params: MGParams = MGParams(), dtype=torch.float32):
         self.geo = geo
         self.bcs = bcs
         self.kappa = float(kappa)
+        self._mg_params = mg_params
         self._dtype = dtype
-        if not FFTPoissonSolver.supports(geo, bcs):
-            raise NotImplementedError(
-                "implicit heat solves off the spectral path need multigrid, "
-                "which is ported in slice 2, see ROADMAP")
-        self._fft = FFTPoissonSolver(geo, bcs, dtype)
+        self._mg = None      # built lazily (the spectral path skips it)
+        self._op = PoissonOp(geo, bcs)
+        self._fft = (FFTPoissonSolver(geo, bcs, dtype)
+                     if FFTPoissonSolver.supports(geo, bcs) else None)
 
-    def _helmholtz_solve(self, rhs, coef, dt):
-        """Solve (I - coef*dt*kappa*L) out = rhs."""
-        return self._fft.solve(rhs, alpha=1.0, beta=-coef * dt * self.kappa)
+    @property
+    def mg(self) -> LevelMultigrid:
+        if self._mg is None:
+            self._mg = LevelMultigrid(self.geo, self.bcs,
+                                      params=self._mg_params,
+                                      dtype=self._dtype)
+        return self._mg
+
+    def _helmholtz_solve(self, rhs, coef, dt, phi0):
+        """Solve (I - coef*dt*kappa*L) out = rhs; returns (out, info)."""
+        beta = -coef * dt * self.kappa
+        if self._fft is not None:
+            return self._fft.solve(rhs, alpha=1.0, beta=beta), (1, 0.0)
+        return self.mg.solve(rhs, phi0=phi0, alpha=1.0, beta=beta,
+                             homogeneous=False, singular=False)
+
+    def _apply_lap(self, s, homogeneous=False):
+        return self._op.apply(s, 0.0, 1.0, homogeneous=homogeneous)
 
 
 class BackwardEuler(BaseHeatSolver):
@@ -44,20 +65,26 @@ class BackwardEuler(BaseHeatSolver):
 
     def update(self, s, src, dt):
         rhs = s + dt * src if src is not None else s
-        return self._helmholtz_solve(rhs, 1.0, dt), (1, 0.0)
+        return self._helmholtz_solve(rhs, 1.0, dt, s)
 
 
 class CrankNicolson(BaseHeatSolver):
-    """(I - dt/2 kappa L) s^{n+1} = (I + dt/2 kappa L) s^n + dt S, as one
-    forward + one inverse transform round-trip."""
+    """(I - dt/2 kappa L) s^{n+1} = (I + dt/2 kappa L) s^n + dt S; on the
+    spectral path one forward + one inverse transform round-trip."""
 
     def update(self, s, src, dt):
-        f = self._fft
-        h = 0.5 * dt * self.kappa
-        num = (1.0 + h * f.lam) * f.fwd(s)
+        if self._fft is not None:
+            f = self._fft
+            h = 0.5 * dt * self.kappa
+            num = (1.0 + h * f.lam) * f.fwd(s)
+            if src is not None:
+                num = num + dt * f.fwd(src)
+            return f.inv(num / (1.0 - h * f.lam)), (1, 0.0)
+        half = 0.5 * dt * self.kappa
+        rhs = s + half * self._apply_lap(s)
         if src is not None:
-            num = num + dt * f.fwd(src)
-        return f.inv(num / (1.0 - h * f.lam)), (1, 0.0)
+            rhs = rhs + dt * src
+        return self._helmholtz_solve(rhs, 0.5, dt, s)
 
 
 class TGA(BaseHeatSolver):
@@ -84,20 +111,28 @@ class TGA(BaseHeatSolver):
 
     def update(self, s, src, dt):
         kdt = self.kappa * dt
-        f = self._fft
-        lam = f.lam
-        num = (1.0 + self.mu3 * kdt * lam) * f.fwd(s)
+        if self._fft is not None:
+            # every factor is diagonal in the same eigenbasis: one forward
+            # + one inverse transform with a combined diagonal
+            f = self._fft
+            lam = f.lam
+            num = (1.0 + self.mu3 * kdt * lam) * f.fwd(s)
+            if src is not None:
+                num = num + dt * (1.0 + self.mu4 * kdt * lam) * f.fwd(src)
+            den = (1.0 - self.mu1 * kdt * lam) * (1.0 - self.mu2 * kdt * lam)
+            return f.inv(num / den), (1, 0.0)
+        rhs = s + self.mu3 * kdt * self._apply_lap(s)
         if src is not None:
-            num = num + dt * (1.0 + self.mu4 * kdt * lam) * f.fwd(src)
-        den = (1.0 - self.mu1 * kdt * lam) * (1.0 - self.mu2 * kdt * lam)
-        return f.inv(num / den), (1, 0.0)
+            rhs = rhs + dt * (src + self.mu4 * kdt * self._apply_lap(src))
+        mid, _ = self._helmholtz_solve(rhs, self.mu2, dt, s)
+        return self._helmholtz_solve(mid, self.mu1, dt, mid)
 
 
-def make_heat_solver(scheme: int, geo, bcs, kappa,
+def make_heat_solver(scheme: int, geo, bcs, kappa, mg_params=MGParams(),
                      dtype=torch.float32) -> BaseHeatSolver:
     """scheme: 0=BackwardEuler, 1=CrankNicolson, 2=TGA."""
     cls = {0: BackwardEuler, 1: CrankNicolson, 2: TGA}[scheme]
-    return cls(geo, bcs, kappa, dtype)
+    return cls(geo, bcs, kappa, mg_params, dtype)
 
 
 class BatchedSpectralHeat:
@@ -107,10 +142,10 @@ class BatchedSpectralHeat:
     C per-axis matrices stack into (C, n, n) batched matmuls."""
 
     def __init__(self, solvers):
+        if not self.supports(solvers):
+            raise ValueError("batched heat solvers differ in scheme or "
+                             "kappa, or one of them has no spectral path")
         s0 = solvers[0]
-        if not all(type(s) is type(s0) and s.kappa == s0.kappa
-                   for s in solvers):
-            raise ValueError("batched heat solvers differ in scheme or kappa")
         self.scheme = type(s0)
         self.kappa = s0.kappa
         ffts = [s._fft for s in solvers]
@@ -121,6 +156,14 @@ class BatchedSpectralHeat:
         self.dtype = s0._dtype
         if isinstance(s0, TGA):
             self.mus = (s0.mu1, s0.mu2, s0.mu3, s0.mu4)
+
+    @staticmethod
+    def supports(solvers) -> bool:
+        if not solvers:
+            return False
+        s0 = solvers[0]
+        return all(type(s) is type(s0) and s.kappa == s0.kappa
+                   and s._fft is not None for s in solvers)
 
     def _apply(self, x, transpose: bool):
         for ax, Qs in self.Qstacks:

@@ -85,7 +85,8 @@ def _grids(ndim, periodic=None):
 
 def _geos(ndim, periodic=None):
     jg, tg = _grids(ndim, periodic)
-    return jgeo(jg, JCartesian()), tgeo(tg, TCartesian())
+    return (jgeo(jg, JCartesian()),
+            tgeo(tg, TCartesian(), device="cpu"))
 
 
 def _bc(kind, value=0.0, order=1):

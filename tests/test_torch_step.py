@@ -71,8 +71,10 @@ def _trajectories(prec):
     try:
         jl = _jax_lock_level(jdtype)
         js = jl.post_initialize(jl.initial_state())
-        tl, _ = entry.build_level(nx=16, nz=8, ny=8, dtype=tdtype)
-        ts = entry.ns_state_from_numpy(_np_state(js), dtype=tdtype)
+        tl, _ = entry.build_level(nx=16, nz=8, ny=8, device="cpu",
+                                  dtype=tdtype)
+        ts = entry.ns_state_from_numpy(_np_state(js), device="cpu",
+                                       dtype=tdtype)
         step = jax.jit(lambda s, d: jl.advance(s, d))
         out = []
         for _ in range(NSTEPS):
@@ -121,8 +123,9 @@ def test_compute_dt_and_total_energy_match_jax(trajectories, prec):
         j_div = float(jl.max_divergence(js))
     finally:
         jax.config.update("jax_enable_x64", False)
-    tl, _ = entry.build_level(nx=16, nz=8, ny=8, dtype=tdtype)
-    ts = entry.ns_state_from_numpy(fields, dtype=tdtype)
+    tl, _ = entry.build_level(nx=16, nz=8, ny=8, device="cpu",
+                              dtype=tdtype)
+    ts = entry.ns_state_from_numpy(fields, device="cpu", dtype=tdtype)
     np.testing.assert_allclose(tl.compute_dt(ts), j_dt, rtol=1e-6)
     energy = float(tl.total_energy(ts))
     if prec == "f64":
@@ -146,14 +149,15 @@ def test_taylor_green_error_matches_jax():
     n, nu, nsteps = 32, 1e-2, 8
     dt = 0.04 / nsteps
     kw = dict(nx=(n, n), dx=(1.0 / n,) * 2, periodic=(True, True))
-    jg, tg = jgeo(JGrid(**kw), JCartesian()), tgeo(TGrid(**kw), TCartesian())
+    jg = jgeo(JGrid(**kw), JCartesian())
+    tg = tgeo(TGrid(**kw), TCartesian(), device="cpu")
     jprob, tprob = JTG(nu=nu), TTG(nu=nu)
     jl = JLevel(jg, jprob, JParams(nu=nu, kappa=(0.0,), gravity_method=0,
                                    fixed_dt=dt, mg=JMG(eps=1e-6, imax=25)))
     tl = TLevel(tg, tprob, TParams(nu=nu, kappa=(0.0,), gravity_method=0,
                                    fixed_dt=dt))
     js = jl.post_initialize(jl.initial_state())
-    ts = entry.ns_state_from_numpy(_np_state(js))
+    ts = entry.ns_state_from_numpy(_np_state(js), device="cpu")
     step = jax.jit(lambda s: jl.advance(s, jnp.asarray(dt)))
     for _ in range(nsteps):
         js = step(js)
@@ -183,11 +187,11 @@ def test_forced_lock_exchange_matches_jax():
     jl = JLevel(jgeo(JGrid(**kw), JCartesian()),
                 forced(JLock, JLinear, JSponge, JTidal),
                 JParams(nu=1e-3, kappa=(1e-3,), gravity_method=1))
-    tl = TLevel(tgeo(TGrid(**kw), TCartesian()),
+    tl = TLevel(tgeo(TGrid(**kw), TCartesian(), device="cpu"),
                 forced(TLock, TLinear, TSponge, TTidal),
                 TParams(nu=1e-3, kappa=(1e-3,), gravity_method=1))
     js = jl.post_initialize(jl.initial_state())
-    ts = entry.ns_state_from_numpy(_np_state(js))
+    ts = entry.ns_state_from_numpy(_np_state(js), device="cpu")
     step = jax.jit(lambda s, d: jl.advance(s, d))
     for _ in range(3):
         js = step(js, jnp.asarray(DT, jnp.float32))
@@ -201,7 +205,7 @@ def test_forced_lock_exchange_matches_jax():
 def test_entry_run_3d_steps_finite():
     """The RunDriver-style loop on a small 3D level: finite fields, every
     step's dt from compute_dt, time advanced by their sum."""
-    level, _ = entry.build_level(nx=16, nz=8, ny=8)
+    level, _ = entry.build_level(nx=16, nz=8, ny=8, device="cpu")
     dts = []
     state = entry.run(level, level.initial_state(), 3,
                       on_step=lambda i, s, dt: dts.append(dt))
@@ -212,10 +216,11 @@ def test_entry_run_3d_steps_finite():
 
 
 def test_unported_configurations_raise():
-    geo = tgeo(TGrid(nx=(16, 8), dx=(1 / 16, 1 / 8)), TCartesian())
+    geo = tgeo(TGrid(nx=(16, 8), dx=(1 / 16, 1 / 8)), TCartesian(),
+               device="cpu")
     prob = TLock(pert_amp=0.0)
     for params in (TParams(update_scheme="rk3"), TParams(gravity_method=2),
-                   TParams(pressure_solver="mg")):
+                   TParams(pressure_solver="leptic")):
         with pytest.raises(NotImplementedError):
             TLevel(geo, prob, params)
 
