@@ -7,17 +7,24 @@ Phases, each printing its result on its own line; any failure exits
 non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions
      (no CUDA device: exit 2, nothing else runs);
-  2. build: compile the CTU kernels K1-K4 and the GSRB kernels K5-K6 with
-     nvcc for sm_90a, the two libraries side by side;
+  2. build: compile the CTU kernels K1-K4, the GSRB kernels K5-K6 and the
+     probed-stencil kernels K7-K8 with nvcc for sm_90a, the three libraries
+     side by side;
   3. kernel parity: each kernel against its plain PyTorch twin on the same
      card tensors, full arrays, |err| <= 1e-6 max|input|: K1-K4 at the
      512x128x128 padded shape (136, 136, 520) f32, every stencil axis and
      mode; K5-K6 at (128, 128, 512) with the pressure BCs and with mixed
      BCs, in 2D, on the coarse multigrid shapes, on periodic extents 2 and
-     3, and once in f64;
+     3, and once in f64; K7-K8 on the seven mapped levels of
+     tests/test_torch_stencil_kernels.py (2D and 3D, periodic extents 3
+     and 4), with and without the implicit-gravity delta overrides, on the
+     finest BeamGeneration level (512, 640) and once in f64;
   4. kernel timing: median per-launch time of each kernel and of its twin
      (CUDA events), K1-K4 averaged over the stencil axes, K5 per sweep (two
-     launches) and K6 per call at (128, 128, 512) f32; beside each the least
+     launches) and K6 per call at (128, 128, 512) f32; K7 per sweep and K8
+     per call at the BeamGeneration level (512, 640), K = 8, and at a
+     twisted 3D level (128, 256, 256), K = 18 (the most a mapped operator
+     probes in 3D), f32; beside each the least
      time the card could take for the same bytes and operations;
   5. solve and step parity: one multigrid solve at 64x16x32 on the card
      against the CPU from the same rhs (phi within 1e-4 max|phi|); the
@@ -32,7 +39,16 @@ non-zero:
      (MGParams(eps=1e-5, imax=12)) through entry.run (10 steps), the same
      checks plus launches of every kernel K1-K6, the V-cycle counts and
      residuals of the first and the last step; then 3 timed samples of 5
-     steps.
+     steps;
+  8. the mapped step on the card against the CPU: one implicit-gravity
+     multigrid solve (phi within 1e-4 max|phi|) and 5 steps of the 40x32
+     BeamGeneration level (max|diff| / max|field| <= 1e-3);
+  9. main path 3: the 640x512 BeamGeneration level (entry.build_beam_level:
+     terrain-following metric, implicit gravity, multigrid everywhere)
+     through entry.run (20 steps), checked for finite fields, max|u| <=
+     10 U0, solves that reduce their residual, and launches of K1, K3, K4,
+     K7 and K8; V-cycles and residuals of every projection; then 3 timed
+     samples of 3 steps.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -63,6 +79,7 @@ B_BOUNDS = (-0.1, 1.1)
 #: timed configuration, flops per cell counted from the source)
 CTU_SOURCE = "somar_tpu_torch/csrc/ctu_kernels.cu"
 GSRB_SOURCE = "somar_tpu_torch/csrc/gsrb_kernels.cu"
+STENCIL_SOURCE = "somar_tpu_torch/csrc/stencil_gsrb_kernels.cu"
 KERNELS = {
     # K1 reads s, u and writes lo, hi, corr; two PPM evaluations a thread
     "ppm_predict": (CTU_SOURCE, "somar_tpu/ops/pallas_kernels.py:252",
@@ -80,7 +97,21 @@ KERNELS = {
     # K6: reads phi and rhs, writes the residual
     "helm_residual": (GSRB_SOURCE, "somar_tpu/ops/gsrb_pallas.py:387", 3,
                       30),
+    # K7, one sweep at K weight planes: reads phi, rhs, Wn, R, w0, writes
+    # phi; 3K + 10 flops a cell (see STENCIL_ARRAYS)
+    "stencil_gsrb_sweeps": (STENCIL_SOURCE,
+                            "somar_tpu/ops/stencil_gsrb_pallas.py:497",
+                            None, None),
+    # K8: reads phi, rhs, Wn, R, writes the residual; 3K + 5 flops a cell
+    "stencil_helm_residual": (STENCIL_SOURCE,
+                              "somar_tpu/ops/stencil_gsrb_pallas.py:524",
+                              None, None),
 }
+#: K7/K8 arrays moved and flops per cell as functions of K
+STENCIL_ARRAYS = {"stencil_gsrb_sweeps": (lambda K: K + 5,
+                                          lambda K: 3 * K + 10),
+                  "stencil_helm_residual": (lambda K: K + 4,
+                                            lambda K: 3 * K + 5)}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -305,11 +336,14 @@ def gsrb_timing(torch, gk, device):
     return out
 
 
-def bound_ms(name, ncells, itemsize=4):
+def bound_ms(name, ncells, itemsize=4, K=None):
     """(least ms the card could take, what bounds it): the larger of the
     bytes the function must move over the memory rate and its operations
-    over the float32 rate, for `ncells` cells per array."""
+    over the float32 rate, for `ncells` cells per array (K7-K8: with K
+    weight planes)."""
     _, _, arrays, flops = KERNELS[name]
+    if name in STENCIL_ARRAYS:
+        arrays, flops = (f(K) for f in STENCIL_ARRAYS[name])
     t_bytes = arrays * ncells * itemsize / HBM_BYTES_PER_S
     t_ops = flops * ncells / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -457,6 +491,341 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     return launches, ms
 
 
+# --------------------------------------------------------------------------
+# phase 3/4 for the probed-stencil kernels K7-K8
+# --------------------------------------------------------------------------
+def _stretch(z):
+    import numpy as np
+    return (np.exp(3.0 * z) - 1.0) / (np.exp(3.0) - 1.0)
+
+
+def stencil_level(nx, periodic, kind, device, dtype, bcs):
+    """PoissonOp of a mapped level: kind "stretched" (vertical exponential
+    stretching), "ledge" (shelf break), "twisted" (sinusoidal tangle) or
+    "beam" (the BeamGeneration ridge at its stand-in size); bcs per logical
+    direction as letters (N Neumann, D Dirichlet, P periodic, C coarse-fine,
+    E extrapolation of order 0) for lo then hi."""
+    import numpy as np
+    import torch
+    from somar_tpu_torch.core.bc import BC, FieldBCs
+    from somar_tpu_torch.core.grid import Grid
+    from somar_tpu_torch.geometry import bathymetric, geo_source
+    from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+    from somar_tpu_torch.solvers.poisson_op import PoissonOp
+    nd = len(nx)
+    kw = dict(nx=nx, dx=tuple(1.0 / n for n in nx), periodic=periodic)
+    if kind == "stretched":
+        src = geo_source.StretchedCartesianMap(
+            (lambda x: x,) * (nd - 1) + (_stretch,))
+    elif kind == "ledge":
+        kw.update(dx=tuple(2.0 / n for n in nx),
+                  x0=(-1.0,) * (nd - 1) + (0.0,))
+        src = bathymetric.LedgeMap((0.0, 1.0), hl=0.5, hr=1.0, xl=-0.5,
+                                   xr=0.5)
+    elif kind == "twisted":
+        src = geo_source.TwistedMap((0.07,) * nd, (1.0,) * nd)
+    else:
+        from somar_tpu_torch import entry
+        Lx, H = entry.BEAM_LENGTH, entry.BEAM_DEPTH
+        kw.update(dx=(Lx / nx[0], H / nx[1]), x0=(-Lx / 2, 0.0))
+        src = bathymetric.BeamGeneratorMap(
+            (0.0, H), full_depth=H,
+            angle=float(np.deg2rad(entry.BEAM_ALPHA_DEG)), lx=Lx)
+    mk = {"N": BC.neumann, "D": BC.dirichlet, "P": BC.periodic, "C": BC.cf,
+          "E": lambda: BC.extrap(0)}
+    lo, hi = bcs
+    geo = build_level_geometry(Grid(**kw), src, device=device,
+                               dtype=getattr(torch, dtype))
+    op = PoissonOp(geo, FieldBCs(lo=tuple(mk[c]() for c in lo),
+                                 hi=tuple(mk[c]() for c in hi)))
+    if op._stencil_plan is None:
+        raise PhaseError(f"no stencil plan for {kind} {nx}")
+    return op
+
+
+#: label -> (nx, periodic, map kind, (lo, hi) BCs, dtype name): the cases of
+#: tests/test_torch_stencil_kernels.py, the finest BeamGeneration level
+#: with the pressure BCs, and once in f64
+STENCIL_CASES = {
+    "stretched-2d": ((24, 32), (True, False), "stretched", ("PN", "PD"),
+                     "float32"),
+    "ledge-2d": ((32, 24), (False, False), "ledge", ("NN", "NN"), "float32"),
+    "twisted-2d": ((24, 16), (True, False), "twisted", ("PC", "PE"),
+                   "float32"),
+    "stretched-3d": ((16, 12, 16), (True, True, False), "stretched",
+                     ("PPN", "PPN"), "float32"),
+    "ledge-3d": ((12, 8, 12), (False, True, False), "ledge",
+                 ("NPN", "DPN"), "float32"),
+    "twisted-periodic3": ((3, 16), (True, False), "twisted", ("PN", "PD"),
+                          "float32"),
+    "ledge-periodic4": ((16, 4, 12), (False, True, False), "ledge",
+                        ("NPN", "NPN"), "float32"),
+    "beam 512,640": ((640, 512), (False, False), "beam", ("NN", "NN"),
+                     "float32"),
+    "ledge-2d f64": ((32, 24), (False, False), "ledge", ("NN", "NN"),
+                     "float64"),
+}
+STENCIL_TIMING = {"beam 512,640": STENCIL_CASES["beam 512,640"],
+                  "twisted-3d 128,256,256": (
+                      (256, 256, 128), (True, True, False), "twisted",
+                      ("PPN", "PPD"), "float32")}
+
+
+def _delta_overrides(torch, op, gen):
+    """The op's K7-K8 operands with a random altered-metric delta folded
+    in (None where the plan does not span all 3^nd - 1 offsets)."""
+    grid = op.grid
+    kw = dict(generator=gen, device=op.geo.device, dtype=op.geo.dtype)
+    diag = tuple(-0.1 * torch.rand(grid.fc_shape(d), **kw)
+                 for d in range(grid.ndim))
+    full = tuple(0.05 * torch.randn((grid.ndim,) + grid.fc_shape(d), **kw)
+                 for d in range(grid.ndim))
+    return op.delta_kernel_overrides((diag, full))
+
+
+def stencil_parity(torch, sgk, device):
+    """Returns {kernel: max abs err over its cases}; raises on a case above
+    PARITY_RTOL * max|input|."""
+    worst = {"stencil_gsrb_sweeps": 0.0, "stencil_helm_residual": 0.0}
+    gen = torch.Generator(device=device).manual_seed(2718)
+    for label, (nx, per, kind, bcs, dtname) in STENCIL_CASES.items():
+        op = stencil_level(nx, per, kind, device, dtname, bcs)
+        plan = op._stencil_plan
+        phi, rhs = (torch.randn(plan.shape, generator=gen, device=device,
+                                dtype=plan.Wn.dtype) for _ in range(2))
+        limit = PARITY_RTOL * max(float(phi.abs().max()),
+                                  float(rhs.abs().max()))
+        variants = [("plain", {})]
+        got = _delta_overrides(torch, op, gen)
+        if got is not None:
+            variants.append(("delta", dict(zip(("Wn", "R", "w0"), got))))
+        for what, ov in variants:
+            res_ov = {k: v for k, v in ov.items() if k != "w0"}
+            runs = [("stencil_gsrb_sweeps", f"iters={it}",
+                     sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.4, 1.7, it,
+                                             **ov),
+                     sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.4, 1.7,
+                                                   it, **ov))
+                    for it in (1, 3)]
+            runs.append(("stencil_helm_residual", "",
+                         sgk.stencil_helm_residual(plan, phi, rhs, 0.4, 1.7,
+                                                   **res_ov),
+                         sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.4,
+                                                         1.7, **res_ov)))
+            torch.cuda.synchronize()
+            for name, it, a, b in runs:
+                err = float((a - b).abs().max())
+                ok = err <= limit and a.shape == b.shape \
+                    and bool(torch.isfinite(a).all())
+                say(f"parity {name:21s} {label:18s} K={plan.K:2d} {what:5s} "
+                    f"{it:8s} max_abs_err={err:.3e} limit={limit:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise PhaseError(f"{name} {label}: kernel and twin "
+                                     "disagree")
+                worst[name] = max(worst[name], err)
+    return worst
+
+
+def device_ms(torch, fn, kernel, calls=20):
+    """Device time per call of fn spent in CUDA kernels whose name starts
+    with `kernel` (torch.profiler): the kernel's own time, without the
+    host's launch gaps that a CUDA-event pair around one call includes."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key
+             and e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
+def stencil_timing(torch, sgk, device):
+    """{label: (ncells, K, {kernel: (ms, plain_ms, device_ms)})}: K7 per
+    sweep (iters=1: two launches), K8 per call, f32, with the plan's own
+    weights; ms and plain_ms from CUDA events around one call, device_ms
+    the kernels' own time (profiler)."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(31)
+    for label, (nx, per, kind, bcs, dtname) in STENCIL_TIMING.items():
+        op = stencil_level(nx, per, kind, device, dtname, bcs)
+        plan = op._stencil_plan
+        phi, rhs = (torch.randn(plan.shape, generator=gen, device=device)
+                    for _ in range(2))
+        times = {}
+        for name, cu_name, kern, plain in (
+                ("stencil_gsrb_sweeps", "stencil_gsrb_half_kernel",
+                 lambda: sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, 1),
+                 lambda: sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.0,
+                                                       1.0, 1)),
+                ("stencil_helm_residual", "stencil_helm_residual_kernel",
+                 lambda: sgk.stencil_helm_residual(plan, phi, rhs, 0.0, 1.0),
+                 lambda: sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.0,
+                                                         1.0))):
+            times[name] = (median_ms(torch, kern), median_ms(torch, plain),
+                           device_ms(torch, kern, cu_name))
+            ncells = phi.numel()
+            bound, by = bound_ms(name, ncells, K=plan.K)
+            say(f"timing {name:21s} {label:22s} K={plan.K} "
+                f"kernel={times[name][0]:.4f} ms "
+                f"plain={times[name][1]:.4f} ms "
+                f"kernel device time={times[name][2]:.4f} ms "
+                f"bound={bound:.4f} ms ({by})")
+        out[label] = (phi.numel(), plan.K, times)
+        del op, plan, phi, rhs
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: the mapped step on the card against the CPU
+# --------------------------------------------------------------------------
+BEAM_TEST_SIZE = (40, 32)
+
+
+def ig_solve_parity(torch, entry, device):
+    """One multigrid solve with the altered metric of implicit gravity on
+    the small BeamGeneration level, card against CPU from the same rhs."""
+    out = {}
+    rhs = torch.randn(BEAM_TEST_SIZE[::-1],
+                      generator=torch.Generator().manual_seed(17))
+    for dev in ("cpu", device):
+        level, _ = entry.build_beam_level(*BEAM_TEST_SIZE, device=dev)
+        mg = level.projector.mg
+        deltas = level._altered_metric.jgup_delta_list(0.6 * 80.0)
+        phi, info = mg.solve(rhs.to(dev), singular=True, jgup_deltas=deltas)
+        out[dev] = (phi.cpu(), info)
+    (p_cpu, i_cpu), (p_dev, i_dev) = out["cpu"], out[device]
+    err = float((p_cpu - p_dev).abs().max()) / float(p_cpu.abs().max())
+    say(f"IG solve parity {BEAM_TEST_SIZE}: phi={err:.3e} "
+        f"limit={MG_SOLVE_RTOL} V-cycles cpu={i_cpu[0]} card={i_dev[0]} "
+        f"relres cpu={i_cpu[1]:.3e} card={i_dev[1]:.3e}")
+    if not err <= MG_SOLVE_RTOL:
+        raise PhaseError("card and CPU implicit-gravity solves disagree")
+
+
+def beam_step_parity(torch, entry, device, nsteps=5):
+    cpu_level, _ = entry.build_beam_level(*BEAM_TEST_SIZE, device="cpu")
+    dev_level, _ = entry.build_beam_level(*BEAM_TEST_SIZE, device=device)
+    s_cpu = cpu_level.post_initialize(cpu_level.initial_state())
+    s_dev = entry.ns_state_from_numpy(entry.ns_state_to_numpy(s_cpu),
+                                      device=device)
+    for _ in range(nsteps):
+        dt = cpu_level.compute_dt(s_cpu)
+        s_cpu = cpu_level.advance(s_cpu, dt)
+        s_dev = dev_level.advance(s_dev, dt)
+    a, b = entry.ns_state_to_numpy(s_cpu), entry.ns_state_to_numpy(s_dev)
+    errs = {f: float(abs(a[f] - b[f]).max()) / float(abs(a[f]).max())
+            for f in ("vel", "scalars", "pressure")}
+    say(f"beam step parity {BEAM_TEST_SIZE} {nsteps} steps: "
+        + " ".join(f"{f}={e:.3e}" for f, e in errs.items())
+        + f" limit={MG_STEP_RTOL}")
+    if not all(e <= MG_STEP_RTOL for e in errs.values()):
+        raise PhaseError("card and CPU BeamGeneration steps disagree")
+
+
+# --------------------------------------------------------------------------
+# phase 9: main path 3, the BeamGeneration level at 640x512
+# --------------------------------------------------------------------------
+#: a solve whose final relative residual stays above this did not work: in
+#: f32 the solves stop by their stall rule at 1e-6..1e-4 of ||rhs||
+SOLVE_FAIL_RELRES = 1e-3
+
+
+def beam_path(torch, entry, counters, device, smi="", nx=640, nz=512,
+              nsteps=20, samples=3, sample_steps=3):
+    """Drive the BeamGeneration level through entry.run and check it.
+    Returns (launches of the run, launches per timed step, ms/step)."""
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    t0 = time.perf_counter()
+    level, grid = entry.build_beam_level(nx, nz, device=device)
+    torch.cuda.synchronize()
+    say(f"main path beam {grid.nx}: level built in "
+        f"{time.perf_counter() - t0:.2f} s; MG levels "
+        f"{[op.grid.shape for op in level.projector.mg.ops]} stencil plans "
+        f"{[op._stencil_plan.K if op._stencil_plan else None for op in level.projector.mg.ops]}")
+    eps = level.params.mg.eps
+    u0 = entry.BEAM_TIDAL_U0
+    rows = []
+
+    def on_step(i, s, dt):
+        rows.append((i, dt, dict(level.projector.last_info)))
+
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = entry.run(level, level.initial_state(), nsteps, on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {}
+    for mod in counters:
+        launches.update(mod.launch_counts())
+    worst = 0.0
+    for i, dt, info in rows:
+        say(f"main path beam step {i:3d} dt={dt:.4f} " + " ".join(
+            f"{purpose}: V-cycles={it} relres={rr:.3e}"
+            for purpose, (it, rr) in sorted(info.items())))
+        worst = max([worst] + [rr for _, rr in info.values()])
+    finite = all(bool(torch.isfinite(getattr(state, f)).all())
+                 for f in ("vel", "scalars", "lam", "pressure"))
+    umax = float(state.vel.abs().max())
+    say(f"main path beam {grid.nx} {nsteps} steps in {run_s:.2f} s (with "
+        f"set-up): t={float(state.time):.3f} s max|u|={umax:.4e} "
+        f"(limit {10 * u0}) worst relres={worst:.3e} (eps {eps}) "
+        f"finite={finite} launches={json.dumps(launches)}")
+    if not finite:
+        raise PhaseError("non-finite BeamGeneration state")
+    if not umax <= 10 * u0:
+        raise PhaseError("max|u| above 10 U0")
+    if worst > SOLVE_FAIL_RELRES:
+        raise PhaseError("a projection did not reduce its residual")
+    path = ("ppm_predict", "ctu_final", "riemann_fluxdiv",
+            "stencil_gsrb_sweeps", "stencil_helm_residual")
+    if not all(launches[k] > 0 for k in path):
+        raise PhaseError("a kernel of the BeamGeneration path was never "
+                         "launched")
+
+    dt = level.compute_dt(state)
+    times = []
+    reads0 = read_scalars.count
+    for mod in counters:
+        mod.reset_launch_counts()
+    k = 0
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(sample_steps):
+            k += 1
+            state = level.advance(state, dt * (1.0 + 1e-6 * k))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / sample_steps)
+    per_step = {}
+    for mod in counters:
+        per_step.update({n: c / (samples * sample_steps)
+                         for n, c in mod.launch_counts().items()})
+    reads = (read_scalars.count - reads0) / (samples * sample_steps)
+    div = float(level.max_divergence(state))
+    if not bool(torch.isfinite(state.vel).all()):
+        raise PhaseError("non-finite state after the timed steps")
+    ms = 1e3 * statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"main path beam timing {grid.nx}: ms/step={ms:.3f} samples="
+        + ",".join(f"{1e3 * t:.3f}" for t in times)
+        + f" cell-updates/s={grid.ncells / (ms * 1e-3):.4e}"
+        f" peak_mem_bytes={peak} solver_host_reads/step={reads:.1f}"
+        f" K7 launches/step={per_step['stencil_gsrb_sweeps']:.1f}"
+        f" K8 launches/step={per_step['stencil_helm_residual']:.1f}"
+        f" max|div| after the CC projection={div:.3e} on {smi}")
+    return launches, per_step, ms
+
+
+
 def main() -> int:
     import torch
 
@@ -468,6 +837,7 @@ def main() -> int:
     from somar_tpu_torch import cuda_build, entry
     from somar_tpu_torch.ops import ctu_kernels as ck
     from somar_tpu_torch.ops import gsrb_kernels as gk
+    from somar_tpu_torch.ops import stencil_gsrb_kernels as sgk
     from somar_tpu_torch.solvers.multigrid import MGParams
 
     device = "cuda"
@@ -477,19 +847,22 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    cuda_build.build_libraries(dict([ck.LIBRARY, gk.LIBRARY]))
+    cuda_build.build_libraries(dict([ck.LIBRARY, gk.LIBRARY, sgk.LIBRARY]))
     ck.load()
     gk.load()
+    sgk.load()
     say(f"build: {time.perf_counter() - t0:.2f} s")
-    for name in (ck.LIBRARY[0], gk.LIBRARY[0]):
+    for name in (ck.LIBRARY[0], gk.LIBRARY[0], sgk.LIBRARY[0]):
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
 
     errs = kernel_parity(torch, ck, device)
     errs.update(gsrb_parity(torch, gk, device))
+    errs.update(stencil_parity(torch, sgk, device))
     timing = kernel_timing(torch, ck, device)
     timing.update(gsrb_timing(torch, gk, device))
+    st_timing = stencil_timing(torch, sgk, device)
     mg = MGParams(eps=1e-5, imax=12)
     solve_parity(torch, device, mg)
     step_parity(torch, entry, device)
@@ -503,21 +876,43 @@ def main() -> int:
     launches_mg, _ = main_path(torch, entry, (ck, gk), device, smi,
                                label="multigrid", nsteps=10, sample_steps=5,
                                pressure_solver="mg", mg=mg)
+    ig_solve_parity(torch, entry, device)
+    beam_step_parity(torch, entry, device)
+    launches_beam, per_step_beam, _ = beam_path(torch, entry, (ck, gk, sgk),
+                                                device, smi)
 
     kernels = []
+    beam_cells, beam_K, beam_times = st_timing["beam 512,640"]
+    cells_3d, K_3d, times_3d = st_timing["twisted-3d 128,256,256"]
     for name, (source, replaces, _, _) in KERNELS.items():
-        ncells = (SHAPE3[0] * SHAPE3[1] * SHAPE3[2] if source == CTU_SOURCE
-                  else GSRB_SHAPE[0] * GSRB_SHAPE[1] * GSRB_SHAPE[2])
-        bound, by = bound_ms(name, ncells)
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches.get(name, launches_mg[name]),
-            "launches_multigrid_path": launches_mg[name],
-            "max_abs_err": errs[name], "ms": timing[name][0],
-            "plain_ms": timing[name][1], "bound_ms": bound, "bound_by": by,
+        entry_ = {"name": name, "route": "cuda", "source": source,
+                  "replaces": replaces}
+        if source == STENCIL_SOURCE:
+            # timed at main path 3's finest level (512, 640), K = 8
+            bound, by = bound_ms(name, beam_cells, K=beam_K)
+            entry_.update(launches=launches_beam[name],
+                          ms=beam_times[name][0],
+                          plain_ms=beam_times[name][1],
+                          device_ms=beam_times[name][2],
+                          K=beam_K, K_3d=K_3d, ms_3d=times_3d[name][0],
+                          plain_ms_3d=times_3d[name][1],
+                          device_ms_3d=times_3d[name][2],
+                          bound_ms_3d=bound_ms(name, cells_3d, K=K_3d)[0])
+        else:
+            ncells = (SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+                      if source == CTU_SOURCE
+                      else GSRB_SHAPE[0] * GSRB_SHAPE[1] * GSRB_SHAPE[2])
+            bound, by = bound_ms(name, ncells)
+            entry_.update(launches=launches.get(name, launches_mg[name]),
+                          ms=timing[name][0], plain_ms=timing[name][1])
+        entry_.update(
+            launches_multigrid_path=launches_mg.get(name, 0),
+            launches_beam_path=launches_beam.get(name, 0),
+            launches_per_beam_step=per_step_beam.get(name, 0.0),
+            max_abs_err=errs[name], bound_ms=bound, bound_by=by,
             # no single PyTorch call computes any of these functions
-            "library_ms": None})
+            library_ms=None)
+        kernels.append(entry_)
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

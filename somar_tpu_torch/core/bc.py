@@ -66,6 +66,12 @@ class BC:
     def extrap(order: int = 1) -> "BC":
         return BC(BCType.EXTRAP, order=order)
 
+    @staticmethod
+    def cf(value: float = 0.0) -> "BC":
+        """Coarse-fine ghost data, a uniform value (zeros when
+        homogeneous)."""
+        return BC(BCType.CF, value=value)
+
 
 @dataclasses.dataclass(frozen=True)
 class FieldBCs:

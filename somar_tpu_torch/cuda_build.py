@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each library (`somar_ctu`: the CTU kernels K1-K4; `somar_gsrb`: the GSRB
-kernels K5-K6) is compiled with `nvcc` from the package's `csrc/` sources
+kernels K5-K6; `somar_stencil`: the probed-stencil kernels K7-K8) is
+compiled with `nvcc` from the package's `csrc/` sources
 into a shared object with a plain C interface and loaded with ctypes.  The
 build is keyed by a hash of the sources and the flags and cached under
 `build/somar_tpu_torch/` at the repository root (git-ignored), so the first

@@ -1,9 +1,11 @@
 """Entry points of the port: the 3D lock-exchange level of the JAX
-package's `__graft_entry__`, the single-level time loop of its `RunDriver`
-(somar_tpu/driver.py), and the state carriers between the two packages.
+package's `__graft_entry__`, the BeamGeneration level of its mapped bench
+path, the single-level time loop of its `RunDriver` (somar_tpu/driver.py),
+and the carriers of states and probed stencils between the two packages.
 
     level, grid = build_level(nx=64, nz=32, ny=16, device="cuda")
     state = run(level, level.initial_state(), nsteps=10)
+    level, grid = build_beam_level(640, 512, device="cuda")
 """
 
 from __future__ import annotations
@@ -15,10 +17,14 @@ import numpy as np
 import torch
 
 from somar_tpu_torch.core.grid import Grid
+from somar_tpu_torch.geometry.bathymetric import BeamGeneratorMap
 from somar_tpu_torch.geometry.geo_source import CartesianMap
 from somar_tpu_torch.geometry.level_geometry import (
     build_level_geometry, require_device)
+from somar_tpu_torch.ops.stencil_gsrb_kernels import StencilPlan
 from somar_tpu_torch.physics.navier_stokes import NSLevel, NSParams, NSState
+from somar_tpu_torch.problems.base import LinearProfile
+from somar_tpu_torch.problems.library import BeamGeneration
 from somar_tpu_torch.problems.lock_exchange import LockExchange
 from somar_tpu_torch.solvers.multigrid import MGParams
 
@@ -48,6 +54,48 @@ def build_level(nx: int, nz: int, ny: int | None = None, *, device="cuda",
                                dtype=dtype)
     params = NSParams(nu=1e-4, kappa=(1e-4,), gravity_method=1, cfl=0.9,
                       pressure_solver=pressure_solver, mg=mg, dtype=dtype)
+    return NSLevel(geo, prob, params), grid
+
+
+#: BeamGeneration stand-ins: the shipped input file that fixes the domain,
+#: the tidal amplitude and the viscosity is not in the repository, so these
+#: values stand in for it (README, "The BeamGeneration level")
+BEAM_LENGTH = 38400.0       # Lx (m)
+BEAM_DEPTH = 3000.0         # H (m)
+BEAM_TIDAL_U0 = 0.01        # m/s, the problem class's default
+BEAM_NU = 1e-4              # nu = kappa (m^2/s)
+#: recorded by the JAX package's mapped bench configuration
+BEAM_ALPHA_DEG = 15.0       # ridge slope
+BEAM_OMEGA = 1e-3           # tidal frequency (1/s)
+BEAM_NSQ = 1.493e-5         # N^2 of the linear stratification (1/s^2)
+BEAM_MG = MGParams(eps=1e-6, imax=20, relax_mode="gsrb")
+
+
+def build_beam_level(nx: int = 640, nz: int = 512, *, device="cuda",
+                     dtype=torch.float32, mg: MGParams = BEAM_MG):
+    """Internal-tide beam generation over a 15-degree ridge on a
+    terrain-following (BeamGeneratorMap) grid, 2D (x, z), Lx x H =
+    38400 x 3000 with x0 = (-Lx/2, 0): linear stratification
+    N^2 = 1.493e-5, tide U0 = 0.01 at omega = 1e-3, the problem's sponges,
+    implicit gravity (theta 0.6), Crank-Nicolson viscosity and diffusion
+    (nu = kappa = 1e-4), the internal-wave dt limit, and multigrid
+    pressure solves (point GSRB, eps 1e-6, imax 20, BiCGStab bottom).
+    Lx, H, U0 and nu are stand-ins (BEAM_* above).  Runs on the GPU unless
+    `device` says otherwise, and raises without one.  Returns (level,
+    grid)."""
+    Lx, H = BEAM_LENGTH, BEAM_DEPTH
+    grid = Grid(nx=(nx, nz), dx=(Lx / nx, H / nz), x0=(-Lx / 2, 0.0))
+    geo_src = BeamGeneratorMap((0.0, H), full_depth=H,
+                               angle=float(np.deg2rad(BEAM_ALPHA_DEG)),
+                               lx=Lx)
+    geo = build_level_geometry(grid, geo_src, device=device, dtype=dtype)
+    prob = BeamGeneration(background=LinearProfile(b0=0.0, slope=-BEAM_NSQ),
+                          tidal_u0=BEAM_TIDAL_U0, tidal_omega=BEAM_OMEGA,
+                          ndim=2)
+    params = NSParams(nu=BEAM_NU, kappa=(BEAM_NU,), gravity_method=2,
+                      gravity_theta=0.6,
+                      limit_dt_via_internal_wave_speed=True, mg=mg,
+                      dtype=dtype)
     return NSLevel(geo, prob, params), grid
 
 
@@ -95,3 +143,20 @@ def ns_state_to_numpy(state: NSState) -> Dict[str, np.ndarray]:
     """Host copies of every NSState field, keyed by field name."""
     return {name: getattr(state, name).detach().cpu().numpy()
             for name in STATE_FIELDS}
+
+
+def stencil_plan_from_numpy(offsets, Wn, R, D, shape, periodic,
+                            device="cuda") -> StencilPlan:
+    """A StencilPlan of the port from a probed plan's host arrays (e.g. a
+    JAX StencilPlan read out with np.asarray), so that kernel tests feed
+    both packages the same weights.  dtype follows Wn."""
+    device = require_device(device)
+    Wn = np.asarray(Wn)
+    dtype = torch.float64 if Wn.dtype == np.float64 else torch.float32
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype,
+                               device=device)
+
+    return StencilPlan(offsets, t(Wn), t(R), t(np.broadcast_to(D, shape)),
+                       shape, periodic)

@@ -11,11 +11,11 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from somar_tpu_torch.core.bc import FieldBCs, fill_ghosts_cc
+from somar_tpu_torch.core.bc import BCType, FieldBCs, fill_ghosts_cc
 from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 
@@ -75,28 +75,74 @@ def fc_to_cc(flux, d: int, grid: Grid):
 
 
 # --------------------------------------------------------------------------
-# MAC gradient: F_d = J g^{dd} d_d(phi) at faces normal to d (the diagonal
-# metric of the uniform maps this slice runs; mapped metrics add the
-# cross terms in slice 3)
+# MAC gradient: F_d = sum_j J g^{dj} d_j(phi) at faces normal to d
 # --------------------------------------------------------------------------
-def mac_gradient(phi, geo: LevelGeometry, bcs: FieldBCs) -> Tuple:
-    # one ghost everywhere covers the normal derivatives
-    return mac_gradient_prepadded(fill_ghosts_cc(phi, geo.grid, bcs, 1), geo)
+def mac_gradient(phi, geo: LevelGeometry, bcs: FieldBCs,
+                 jgup_delta=None) -> Tuple:
+    """jgup_delta: optional per-direction additive modification of the
+    face metric, ((diag_d,)*ndim, (full_d,)*ndim | None): the altered
+    metric of implicit gravity (projection/altered_metric.py)."""
+    # one ghost everywhere covers both normal and tangential derivatives
+    p = fill_ghosts_cc(phi, geo.grid, bcs, 1)
+    return mac_gradient_prepadded(p, geo, jgup_delta, bcs=bcs)
 
 
-def mac_gradient_prepadded(p, geo: LevelGeometry) -> Tuple:
+def mac_gradient_prepadded(p, geo: LevelGeometry, jgup_delta=None,
+                           bcs: Optional[FieldBCs] = None) -> Tuple:
     """mac_gradient on a tensor already padded with ONE ghost layer on
-    every side."""
+    every side.
+
+    bcs (when known): Neumann sides constrain the TOTAL co-normal flux
+    J g^{dj} d_j phi, so the cross-metric term is zeroed at those boundary
+    faces.  Without this the cross term leaks flux through solid walls:
+    the pure-Neumann solvability condition breaks and the projected
+    velocity's wall-normal flux is not conserved."""
     grid = geo.grid
+    ndim = grid.ndim
+    dx = grid.dx
+    d_diag = jgup_delta[0] if jgup_delta is not None else None
+    d_full = jgup_delta[1] if jgup_delta is not None else None
     fluxes = []
-    for d in range(grid.ndim):
+    for d in range(ndim):
+        ax = grid.axis(d)
         # normal derivative at faces of d: strip tangential ghosts
         pn = p
-        for j in range(grid.ndim):
+        for j in range(ndim):
             if j != d:
                 pn = slc(pn, grid.axis(j), 1, -1)
-        fluxes.append(geo.Jgup_diag[d]
-                      * (diff_along(pn, grid.axis(d)) / grid.dx[d]))
+        Jg_d = geo.Jgup_diag[d]
+        if d_diag is not None and d_diag[d] is not None:
+            Jg_d = Jg_d + d_diag[d]
+        flux = Jg_d * (diff_along(pn, ax) / dx[d])
+
+        if d_full is not None or (not geo.is_diagonal
+                                  and geo.Jgup_full is not None):
+            # tangential derivatives averaged to the d-faces: CC central
+            # derivative in j, then 2-point average along d
+            for j in range(ndim):
+                if j == d:
+                    continue
+                coef = (geo.Jgup_full[d][j] if geo.Jgup_full is not None
+                        else 0.0)
+                if d_full is not None and d_full[d] is not None:
+                    coef = coef + d_full[d][j]
+                if isinstance(coef, float) and coef == 0.0:
+                    continue
+                axj = grid.axis(j)
+                pj = p
+                for k in range(ndim):
+                    if k != d and k != j:
+                        pj = slc(pj, grid.axis(k), 1, -1)
+                dphi_j = (slc(pj, axj, 2, None)
+                          - slc(pj, axj, 0, -2)) / (2.0 * dx[j])
+                cross = coef * avg_along(dphi_j, ax)   # a fresh tensor
+                if bcs is not None:
+                    n = cross.shape[ax]
+                    for bc, idx in ((bcs.lo[d], 0), (bcs.hi[d], n - 1)):
+                        if bc.type == BCType.NEUMANN:
+                            cross.select(ax, idx).zero_()
+                flux = flux + cross
+        fluxes.append(flux)
     return tuple(fluxes)
 
 
@@ -113,3 +159,15 @@ def mac_divergence(fluxes: Sequence, geo: LevelGeometry,
     if scale_by_Jinv:
         out = out * geo.Jinv
     return out
+
+
+# --------------------------------------------------------------------------
+# CC gradient of a CC field via face-average of the MAC gradient
+# --------------------------------------------------------------------------
+def cc_gradient(phi, geo: LevelGeometry, bcs: FieldBCs):
+    """(ndim,)+shape tensor: (J g^{dj} d_j phi)/J averaged to CC, i.e. the
+    contravariant gradient g^{dj} d_j phi at cell centers."""
+    grid = geo.grid
+    fluxes = mac_gradient(phi, geo, bcs)
+    return torch.stack([fc_to_cc(fluxes[d], d, grid) * geo.Jinv
+                        for d in range(grid.ndim)])

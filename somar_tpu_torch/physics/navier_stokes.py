@@ -9,17 +9,21 @@ One step (`NSLevel.advance`):
   velocity: re-upwind the stashed velocity traces against the projected
     advecting velocity (K4), add gravity / lagged pressure gradient /
     sponge / tidal forcing, implicit viscous update;
-  CC projection.
+  CC projection, or with implicit gravity (gravity_method=2) the
+    semi-implicit buoyancy update around a CC projection with the altered
+    metric (projection/altered_metric.py).
 
-Velocity is stored in the Cartesian basis at cell centers.  The step takes
+Velocity is stored in the Cartesian basis at cell centers; on a mapped
+metric the traces and the advecting fluxes use its contravariant
+(mapped-basis) components.  The step takes
 dt as a Python float, so no kernel argument forces a device sync;
 `compute_dt` is one host read per step; the iterative solvers add one per
 V-cycle and one per BiCGStab iteration (solvers/host_reads.py).
 
 Uniform Cartesian levels run with spectral, multigrid or BiCGStab
-pressure solves and spectral or multigrid heat solves.  Implicit gravity
-(gravity_method=2), the RK3 scheme, mapped metrics, time-dependent BCs and
-the internal-wave dt limit raise NotImplementedError.
+pressure solves and spectral or multigrid heat solves; mapped levels with
+multigrid.  The RK3 scheme and time-dependent BCs raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,18 +36,29 @@ import torch
 
 from somar_tpu_torch.core.bc import BC, FieldBCs, apply_fc_bc, fill_ghosts_cc
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
-from somar_tpu_torch.ops.stencil import cc_to_fc, face_avg, mac_divergence
+from somar_tpu_torch.ops.stencil import (
+    avg_along, cc_to_fc, face_avg, mac_divergence, slc)
 from somar_tpu_torch.physics.godunov import (
     ADVECT_GROW, AdvectionParams, _crop_faces, divergence_from_partials,
     flux_divergence, momentum_flux_divergence, pad_valid_faces,
     riemann_from_states, trace_face_states)
 from somar_tpu_torch.problems.base import Problem, sponge_ramp, tidal_source
+from somar_tpu_torch.projection.altered_metric import AlteredMetric
 from somar_tpu_torch.projection.projector import LevelProjector
 from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.multigrid import MGParams
 from somar_tpu_torch.solvers.parabolic import (
     BatchedSpectralHeat, make_heat_solver)
 from somar_tpu_torch.solvers.poisson_op import PoissonOp
+from somar_tpu_torch.utils.strat import solve_vert_eigen_problem
+
+
+def _edge_face_avg(t, ax: int):
+    """2-point average onto every face of axis ax, each boundary face
+    taking its edge cell's value."""
+    n = t.shape[ax]
+    return avg_along(torch.cat([slc(t, ax, 0, 1), t, slc(t, ax, n - 1, n)],
+                               dim=ax), ax)
 
 
 # --------------------------------------------------------------------------
@@ -101,7 +116,7 @@ class NSState:
 @dataclasses.dataclass
 class _StepTemps:
     """Per-step temporaries shared by the traces of one `advance`."""
-    u_pad: list                      # ADVECT_GROW-padded tracing velocities
+    u_pad: list                      # ADVECT_GROW-padded mapped velocities
     adv_valid: tuple = None          # projected advecting fluxes (valid faces)
     adv_pad: tuple = None            # the same, padded face-indexed
     vel_pre: list = None             # per component, per dir (lo_f, hi_f)
@@ -116,14 +131,6 @@ class NSLevel:
             raise NotImplementedError(
                 f"update_scheme={params.update_scheme!r} is ported in "
                 "slice 5, see ROADMAP")
-        if params.gravity_method == 2:
-            raise NotImplementedError(
-                "implicit gravity (gravity_method=2) is ported in slice 3, "
-                "see ROADMAP")
-        if params.limit_dt_via_internal_wave_speed and \
-                problem.use_background_scalar:
-            raise NotImplementedError(
-                "the internal-wave dt limit is ported in slice 3")
         self.geo = geo
         self.grid = geo.grid
         self.problem = problem
@@ -190,9 +197,43 @@ class NSLevel:
                                     torch.as_tensor(st, **kw))
         self._nsq_cc = (torch.as_tensor(problem.nsq_cc(geo), **kw)
                         if problem.use_background_scalar else None)
+        # first-mode internal-wave phase speed per direction, for the dt
+        # limit
+        self._c0i = None
+        if (params.limit_dt_via_internal_wave_speed
+                and self._nsq_cc is not None):
+            self._c0i = self._internal_wave_speed()
+        # implicit gravity: altered-metric fields per MG level
+        self._altered_metric = None
+        if params.gravity_method == 2 and problem.use_background_scalar:
+            self._altered_metric = AlteredMetric(
+                self.projector.mg, problem.background, dtype)
         # physical z at cell centers, for the energy diagnostic
-        self._z_cc = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+        self._z_cc = torch.as_tensor(np.array(np.broadcast_to(
             geo.phys_coords_cc()[ndim - 1], grid.shape)), **kw)
+
+    def _internal_wave_speed(self):
+        """Per-direction first-mode phase speed c0^d = c0 * max over
+        horizontal j of |dxi^d/dx^j|, from the vertical eigenproblem of the
+        horizontally averaged N^2 profile: Python floats on uniform maps,
+        CC tensors on mapped ones."""
+        grid = self.grid
+        vd = grid.vertical_dir
+        vax = grid.axis(vd)
+        nsq = self._nsq_cc.cpu().numpy()
+        horiz_axes = tuple(a for a in range(nsq.ndim) if a != vax)
+        prof = nsq.mean(axis=horiz_axes) if horiz_axes else nsq
+        c, _ = solve_vert_eigen_problem(np.maximum(prof, 0.0),
+                                        grid.dx[vd], 1)
+        c0 = float(np.asarray(c).ravel()[0])
+        if self.geo.einv_cc is None:
+            return tuple(0.0 if d == vd else c0 for d in range(grid.ndim))
+        einv = self.geo.einv_cc.cpu().numpy()
+        hdirs = [n for n in range(grid.ndim) if n != vd]
+        return tuple(
+            self._tensor(c0 * np.max([np.abs(einv[d, n]) for n in hdirs],
+                                     axis=0))
+            for d in range(grid.ndim))
 
     # ------------------------------------------------------------- set-up
     def _tensor(self, arr):
@@ -265,8 +306,21 @@ class NSLevel:
             for m in range(self.grid.ndim)])
 
     # ----------------------------------------------- advecting velocities
+    def _einv_fc(self, d):
+        """dxi/dx averaged to d-faces (None on uniform maps)."""
+        e = self.geo.einv_cc
+        if e is None:
+            return None
+        return _edge_face_avg(e, 2 + self.grid.axis(d))
+
+    def _J_fc(self, d):
+        """J averaged to d-faces."""
+        J = self.geo.J * torch.ones(self.grid.shape, dtype=self.params.dtype,
+                                    device=self.device)
+        return _edge_face_avg(J, self.grid.axis(d))
+
     def compute_advecting_velocities(self, state: NSState, src_vel, dt,
-                                     tmp: _StepTemps):
+                                     tmp: _StepTemps, u_mapped):
         """Predict face-centered J u^d at t+dt/2 and MAC-project.  The
         velocity traces' pre-Riemann states are stashed in tmp.vel_pre for
         the momentum update."""
@@ -274,27 +328,49 @@ class NSLevel:
         ndim = grid.ndim
         vel = state.vel
         # provisional advecting velocity for upwinding: face-averaged
-        # J u^d (J = 1), padded face-indexed from the shared pads
-        prov_pad = tuple(face_avg(tmp.u_pad[d], grid.axis(d))
-                         for d in range(ndim))
+        # J u^d, padded face-indexed (J = 1 and the shared pads on uniform
+        # maps)
+        if geo.is_uniform:
+            prov_pad = tuple(face_avg(tmp.u_pad[d], grid.axis(d))
+                             for d in range(ndim))
+        else:
+            prov_pad = tuple(
+                face_avg(fill_ghosts_cc(geo.mult_by_J(u_mapped[d]), grid,
+                                        self.vel_bcs_trace[d], ADVECT_GROW),
+                         grid.axis(d))
+                for d in range(ndim))
         predicted = []
         tmp.vel_pre = []
         for m in range(ndim):
-            # the advecting flux on d-faces reads only component m=d's
-            # Riemann output: the other directions emit pre-states only
+            # identity einv (uniform maps): the advecting flux on d-faces
+            # reads only component m=d's Riemann output, so the other
+            # directions emit pre-states only
             faces, pre = trace_face_states(
-                vel[m], vel, prov_pad, src_vel[m], dt, geo,
+                vel[m], u_mapped, prov_pad, src_vel[m], dt, geo,
                 self.vel_bcs_trace[m], self.params.advection_vel,
                 vel_bcs=self.vel_bcs_trace, u_pad=tmp.u_pad,
-                return_pre_riemann=True, padded=True, rie_dirs=[m])
+                return_pre_riemann=True, padded=True,
+                rie_dirs=[m] if geo.einv_cc is None else None)
             predicted.append(faces)
             tmp.vel_pre.append(pre)
 
+        # normal contravariant flux on d-faces: J * einv[d, m] * u_m,
+        # cropped to valid faces
         G = ADVECT_GROW
-        adv = tuple(
-            apply_fc_bc(_crop_faces(predicted[d][d], grid, d, G), d, grid,
-                        self.vel_bcs_trace[d])
-            for d in range(ndim))
+        adv = []
+        for d in range(ndim):
+            einv = self._einv_fc(d)
+            if einv is None:
+                flux = _crop_faces(predicted[d][d], grid, d, G)
+            else:
+                flux = einv[d, 0] * _crop_faces(predicted[0][d], grid, d, G)
+                for m in range(1, ndim):
+                    flux = flux + einv[d, m] * _crop_faces(
+                        predicted[m][d], grid, d, G)
+            if not geo.is_uniform:
+                flux = self._J_fc(d) * flux
+            adv.append(apply_fc_bc(flux, d, grid, self.vel_bcs_trace[d]))
+        adv = tuple(adv)
         if self.params.is_incompressible:
             adv, mac_phi, _ = self.projector.project_mac(
                 adv, phi0=state.mac_phi)
@@ -339,7 +415,9 @@ class NSLevel:
             src = None
             if c == 0:
                 parts = []
-                if self._nsq_cc is not None:
+                if self._nsq_cc is not None and self._altered_metric is None:
+                    # background advection w N^2 (explicit gravity; implicit
+                    # gravity applies it semi-implicitly)
                     parts.append(state.vel[self.grid.ndim - 1] * self._nsq_cc)
                 if sponge_s is not None:
                     parts.append(sponge_s)
@@ -443,11 +521,12 @@ class NSLevel:
                         for s in src_vel)
 
         # one shared ghost fill of the tracing velocities for all traces
+        u_mapped = self.geo.to_mapped(state.vel)
         tmp = _StepTemps(u_pad=[
-            fill_ghosts_cc(state.vel[d], grid, self.vel_bcs_trace[d],
+            fill_ghosts_cc(u_mapped[d], grid, self.vel_bcs_trace[d],
                            ADVECT_GROW) for d in range(ndim)])
         adv_vel, mac_phi = self.compute_advecting_velocities(
-            state, src_vel, dt, tmp)
+            state, src_vel, dt, tmp, u_mapped)
         tmp.adv_valid = adv_vel
         if diag is not None:
             diag["max_mac_div"] = mac_divergence(adv_vel, self.geo).abs().max()
@@ -461,7 +540,11 @@ class NSLevel:
 
         cc_phi = state.cc_phi
         pressure = state.pressure
-        if p.is_incompressible:
+        if self._altered_metric is not None:
+            vel, scalars, cc_phi = self._do_ig_projection(
+                state, vel, scalars, dt)
+            pressure = state.pressure + cc_phi / dt
+        elif p.is_incompressible:
             for _ in range(max(1, p.level_projection_iters)):
                 vel, cc_phi, _ = self.projector.project_cc(
                     vel, self.vel_bcs_trace, phi0=state.cc_phi)
@@ -470,16 +553,52 @@ class NSLevel:
                        cc_phi=cc_phi, pressure=pressure,
                        e_lambda=state.e_lambda, time=state.time + dt)
 
+    # ------------------------------------------------- implicit gravity
+    def _do_ig_projection(self, state: NSState, vel_star, scalars_star, dt):
+        """Semi-implicit buoyancy + altered-metric projection.  In the
+        Cartesian velocity basis the contravariant update
+        u^i -= dt*Dinv*(dxi^i/dz)*btilde collapses to a purely vertical
+        kick u_z -= dt*Dinv*btilde."""
+        p = self.params
+        theta = p.gravity_theta
+        vert = self.grid.ndim - 1
+        nsq = self._altered_metric.nsq_cc()
+        dt_theta = dt * theta
+        dinv = 1.0 / (1.0 + dt_theta * dt_theta * nsq)
+
+        b_old = state.scalars[0]
+        b_new = scalars_star[0]
+        w_theta = theta * vel_star[vert] + (1.0 - theta) * state.vel[vert]
+        b_theta = theta * b_new + (1.0 - theta) * b_old
+        btilde = b_theta + dt_theta * nsq * w_theta
+        vel_star = vel_star.clone()
+        vel_star[vert] = vel_star[vert] + (-dt * dinv * btilde)
+
+        cc_phi = state.cc_phi
+        if p.is_incompressible:
+            deltas = self._altered_metric.jgup_delta_list(dt_theta)
+            vel_star, cc_phi, _ = self.projector.project_cc(
+                vel_star, self.vel_bcs_trace, phi0=state.cc_phi,
+                jgup_deltas=deltas)
+
+        # semi-implicit buoyancy update with the projected velocity
+        w_theta_new = (theta * vel_star[vert]
+                       + (1.0 - theta) * state.vel[vert])
+        scalars_star = scalars_star.clone()
+        scalars_star[0] = b_new + dt * nsq * w_theta_new
+        return vel_star, scalars_star, cc_phi
+
     # ---------------------------------------------------------------- dt
     def compute_dt(self, state: NSState) -> float:
-        """CFL + viscous + diffusive + pressure-gradient dt limits, as a
-        Python float (one device-to-host read)."""
+        """CFL + viscous + diffusive + pressure-gradient + internal-wave dt
+        limits, as a Python float (one device-to-host read)."""
         p = self.params
         grid = self.grid
         if p.fixed_dt > 0.0:
             return float(torch.tensor(p.fixed_dt, dtype=p.dtype))
-        # per-direction max|u_d|/dx_d, reduced on the device in dtype
-        rates = torch.stack([state.vel[d].abs().max() / grid.dx[d]
+        u_mapped = self.geo.to_mapped(state.vel)
+        # per-direction max|u^d|/dx_d, reduced on the device in dtype
+        rates = torch.stack([u_mapped[d].abs().max() / grid.dx[d]
                              for d in range(grid.ndim)])
         inv_dt = torch.clamp_min(rates.max(), 1e-12)
         dt = p.cfl / inv_dt
@@ -496,6 +615,11 @@ class NSLevel:
                 dphi = torch.diff(state.cc_phi, dim=grid.axis(d)).abs().max()
                 dt = torch.minimum(
                     dt, grid.dx[d] / torch.sqrt(torch.clamp_min(dphi, 1e-30)))
+        if p.limit_dt_via_internal_wave_speed and self._c0i is not None:
+            # dt <= cfl * min_cells,d dx_d / (|u^d| + c0^d)
+            bv = torch.stack([(u_mapped[d].abs() + self._c0i[d]).max()
+                              / grid.dx[d] for d in range(grid.ndim)])
+            dt = torch.minimum(dt, p.cfl / torch.clamp_min(bv.max(), 1e-12))
         return read_scalars(torch.clamp_max(dt, p.max_dt).to(p.dtype))[0]
 
     # --------------------------------------------------------- diagnostics
@@ -507,9 +631,10 @@ class NSLevel:
         return torch.sum((ke + pe) * self.geo.J) * dv
 
     def cell_divergence(self, state: NSState):
-        """Per-cell divergence of the face-averaged CC velocity."""
+        """Per-cell mapped divergence of the face-averaged CC velocity."""
+        u_mapped = self.geo.to_mapped(state.vel)
         fluxes = tuple(
-            cc_to_fc(self.geo.mult_by_J(state.vel[d]), d, self.grid,
+            cc_to_fc(self.geo.mult_by_J(u_mapped[d]), d, self.grid,
                      self.vel_bcs_trace[d])
             for d in range(self.grid.ndim))
         return mac_divergence(fluxes, self.geo)

@@ -1,21 +1,27 @@
 """Where the time of the port's PPM step goes on one GPU.
 
-    python3 -m somar_tpu_torch.profile_step [--nx 512 --ny 128 --nz 128]
+    python3 -m somar_tpu_torch.profile_step [--config lock|beam]
+                                            [--nx N --ny N --nz N]
                                             [--pressure-solver auto|mg]
                                             [--steps 5] [--trace FILE]
 
-Builds the lock-exchange level of `entry.build_level` (with
-`--pressure-solver mg` the multigrid-forced one, MGParams(eps=1e-5,
-imax=12)), runs 10 steps of `entry.run` (initial projections,
-pressure initialization, dt ramped up as that time loop does), then
-profiles `--steps` steps at the loop's last dt with torch.profiler (CPU +
-CUDA activities).  Prints the
-wall ms/step, the device time per step split into groups (the CTU kernels
-K1-K4, the GSRB kernels K5-K6, matmuls of the spectral solves, torch.cat
-copies of the ghost fills and shifts, other elementwise and reduction
-kernels), the device-busy share (device time / wall time), the host reads
-per step and the 20 kernels with the most device time.  --trace writes a
-Chrome trace of the profiled window.
+`--config lock` (default) builds the lock-exchange level of
+`entry.build_level` (512x128x128; with `--pressure-solver mg` the
+multigrid-forced one, MGParams(eps=1e-5, imax=12)); `--config beam` the
+BeamGeneration level of `entry.build_beam_level` (640x512, mapped metric,
+implicit gravity, multigrid everywhere).  Runs 10 steps of `entry.run`
+(initial projections, pressure initialization, dt ramped up as that time
+loop does; 3 for beam), then profiles `--steps` steps at the loop's last
+dt with torch.profiler (CPU + CUDA activities).  Prints the wall ms/step,
+the device time per step split into groups (the CTU kernels K1-K4, the
+GSRB kernels K5-K6, the probed-stencil kernels K7-K8, matmuls of the
+spectral solves, torch.cat copies of the ghost fills and shifts, other
+elementwise and reduction kernels), the device-busy share (device time /
+wall time), the host reads per step and the 20 kernels with the most
+device time.  For beam it then profiles, alone, the delta-weight probes
+that set up one implicit-gravity CC solve (PoissonOp.delta_kernel_
+overrides on every MG level).  --trace writes a Chrome trace of the
+profiled window.
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ WARMUP_STEPS = 10
 GROUPS = (
     ("CTU kernels K1-K4", ("ppm_predict_kernel", "ctu_corr3_kernel",
                            "ctu_final_kernel", "riemann_fluxdiv_kernel")),
+    # before K5-K6: their kernel names are substrings of these
+    ("stencil kernels K7-K8", ("stencil_gsrb_half_kernel",
+                               "stencil_helm_residual_kernel")),
     ("GSRB kernels K5-K6", ("gsrb_half_kernel", "helm_residual_kernel")),
     ("matmul (spectral solves)", ("gemm", "gemv")),
     ("cat (ghost fills, shifts)", ("catarray",)),
@@ -52,11 +61,43 @@ def _group(name: str) -> str:
     return "other"
 
 
+def _device_summary(prof, nsteps):
+    """({kernel: device us}, {kernel: launches}, total device ms per
+    step) of a profiled window."""
+    kernels, counts = {}, {}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+            counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    return kernels, counts, sum(kernels.values()) / 1e3 / nsteps
+
+
+def _profile_probes(level, acts, dt):
+    """Device time and launches of the delta-weight probes of one
+    implicit-gravity CC solve, profiled alone."""
+    am = level._altered_metric
+    mg = level.projector._mg_for("cc")
+    deltas = am.jgup_delta_list(dt * level.params.gravity_theta)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for op, jd in zip(mg.ops, deltas):
+            op.delta_kernel_overrides(jd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, counts, ms = _device_summary(prof, 1)
+    print(f"  probe/override set-up of one IG CC solve ({len(mg.ops)} MG "
+          f"levels): wall {1e3 * wall:.3f} ms, device {ms:.3f} ms, "
+          f"{sum(counts.values())} launches")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nx", type=int, default=512)
+    ap.add_argument("--config", default="lock", choices=("lock", "beam"))
+    ap.add_argument("--nx", type=int, default=None)
     ap.add_argument("--ny", type=int, default=128)
-    ap.add_argument("--nz", type=int, default=128)
+    ap.add_argument("--nz", type=int, default=None)
     ap.add_argument("--pressure-solver", default="auto",
                     choices=("auto", "mg"))
     ap.add_argument("--steps", type=int, default=5)
@@ -65,12 +106,18 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
-    level, grid = entry.build_level(
-        nx=args.nx, nz=args.nz, ny=args.ny, device="cuda",
-        pressure_solver=args.pressure_solver,
-        mg=MGParams(eps=1e-5, imax=12))
+    if args.config == "beam":
+        level, grid = entry.build_beam_level(args.nx or 640, args.nz or 512,
+                                             device="cuda")
+        warmup = 3
+    else:
+        level, grid = entry.build_level(
+            nx=args.nx or 512, nz=args.nz or 128, ny=args.ny, device="cuda",
+            pressure_solver=args.pressure_solver,
+            mg=MGParams(eps=1e-5, imax=12))
+        warmup = WARMUP_STEPS
     dts = []
-    state = entry.run(level, level.initial_state(), WARMUP_STEPS,
+    state = entry.run(level, level.initial_state(), warmup,
                       on_step=lambda i, s, dt: dts.append(dt))
     dt = dts[-1]
     torch.cuda.synchronize()
@@ -91,14 +138,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile_step: the profiled steps left a "
                          "non-finite state")
 
-    kernels, counts = {}, {}
-    for evt in prof.key_averages():
-        us = evt.self_device_time_total
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
-            counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    kernels, counts, total_ms = _device_summary(prof, args.steps)
     launches = sum(counts.values())
-    total_ms = sum(kernels.values()) / 1e3 / args.steps
     print(f"grid {grid.nx} pressure solver {level.projector.method}: wall "
           f"{1e3 * wall:.3f} ms/step, device {total_ms:.3f} ms/step, "
           f"device-busy share {total_ms / (1e3 * wall):.3f}, "
@@ -119,6 +160,8 @@ def main(argv=None) -> int:
     print("top kernels (ms/step):")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {us / 1e3 / args.steps:9.3f}  {name[:110]}")
+    if level._altered_metric is not None:
+        _profile_probes(level, acts, dt)
     return 0
 
 

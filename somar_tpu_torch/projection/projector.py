@@ -12,9 +12,14 @@ Scaling conventions (flux form):
 
 The pressure solver is the `method` knob: "fft" (the spectral direct
 solve), "mg" (LevelMultigrid), "bicgstab", or "auto" (spectral where it
-applies, else multigrid).  The leptic solver, coarse-fine ghost rings and
-the altered metric of implicit gravity are not ported yet and raise
-NotImplementedError (ROADMAP slices 5, 4 and 3).
+applies, else multigrid).  A solve with the altered metric of implicit
+gravity (`jgup_deltas`) takes multigrid even where the spectral solve
+exists.  The leptic solver and coarse-fine ghost rings are not ported yet
+(ROADMAP slices 5 and 4).
+
+The projections subtract the plain MAC gradient of the potential,
+without the Neumann cross-term zeroing of the operator's gradient, as the
+JAX package's projector does.
 """
 
 from __future__ import annotations
@@ -23,10 +28,10 @@ from typing import Optional, Sequence
 
 import torch
 
-from somar_tpu_torch.core.bc import BC, FieldBCs
+from somar_tpu_torch.core.bc import BC, FieldBCs, fill_ghosts_cc
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 from somar_tpu_torch.ops.stencil import (
-    cc_to_fc, fc_to_cc, mac_divergence, mac_gradient)
+    cc_to_fc, fc_to_cc, mac_divergence, mac_gradient, mac_gradient_prepadded)
 from somar_tpu_torch.solvers.bicgstab import BiCGStabParams, bicgstab
 from somar_tpu_torch.solvers.fft_poisson import FFTPoissonSolver
 from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
@@ -96,15 +101,15 @@ class LevelProjector:
         return self._mgs[purpose]
 
     # ----------------------------------------------------------- solves
-    def _solve(self, rhs, phi0=None, purpose="mac"):
+    def _solve(self, rhs, phi0=None, purpose="mac", jgup_deltas=None):
         """(phi, (iterations, final relative residual)); phi0 warm-starts
         the iterative solvers."""
-        phi, info = self._solve_by_method(rhs, phi0, purpose)
+        phi, info = self._solve_by_method(rhs, phi0, purpose, jgup_deltas)
         self.last_info[purpose] = info
         return phi, info
 
-    def _solve_by_method(self, rhs, phi0, purpose):
-        if self.method == "fft":
+    def _solve_by_method(self, rhs, phi0, purpose, jgup_deltas):
+        if self.method == "fft" and jgup_deltas is None:
             return self.fft.solve(rhs), (1, 0.0)
         if self.method == "bicgstab":
             mp = self._params_for(purpose)
@@ -113,21 +118,30 @@ class LevelProjector:
                                 num_restarts=mp.bottom_num_restarts)
             if self.singular:
                 rhs = self.op.compat_project(rhs)
-            return bicgstab(self.op.apply, rhs, x0=phi0, params=bp,
-                            remove_mean=self.singular)
+            jd0 = jgup_deltas[0] if jgup_deltas is not None else None
+            return bicgstab(lambda v: self.op.apply(v, jgup_delta=jd0), rhs,
+                            x0=phi0, params=bp, remove_mean=self.singular)
         return self._mg_for(purpose).solve(rhs, phi0=phi0,
-                                           singular=self.singular)
+                                           singular=self.singular,
+                                           jgup_deltas=jgup_deltas)
 
     # ------------------------------------------------------------- helpers
     def cc_grad_cart(self, phi):
         """Cartesian-basis CC gradient of a CC potential via face-average
-        of the MAC gradient (the discrete gradient the projection
-        subtracts)."""
+        of the MAC gradient with the pressure BCs (Neumann cross terms
+        zeroed at walls, unlike the projections' correction)."""
         geo, grid = self.geo, self.grid
         grad_fc = mac_gradient(phi, geo, self.phi_bcs)
         grad_cc = torch.stack([fc_to_cc(grad_fc[d], d, grid) * geo.Jinv
                                for d in range(grid.ndim)])
         return geo.to_cartesian(grad_cc)
+
+    def _grad(self, phi, jd0=None):
+        """MAC gradient of phi from its BC ghost fill (jd0: the finest
+        level's altered-metric delta)."""
+        return mac_gradient_prepadded(
+            fill_ghosts_cc(phi, self.grid, self.phi_bcs, 1), self.geo,
+            jgup_delta=jd0)
 
     # ------------------------------------------------------ MAC projection
     def project_mac(self, fluxes: Sequence, phi0=None):
@@ -136,7 +150,7 @@ class LevelProjector:
         warm-starts an iterative solve."""
         div = mac_divergence(fluxes, self.geo)
         phi, info = self._solve(div, phi0, purpose="mac")
-        grad = mac_gradient(phi, self.geo, self.phi_bcs)
+        grad = self._grad(phi)
         out = tuple(f - g for f, g in zip(fluxes, grad))
         return out, phi, info
 
@@ -153,17 +167,25 @@ class LevelProjector:
         Poisson RHS."""
         return mac_divergence(self.cc_fluxes(vel_cart, vel_bcs), self.geo)
 
-    def cc_correction(self, phi):
+    def cc_correction(self, phi, jd0=None):
         """Cartesian-basis CC correction velocity
-        to_cartesian(g^{dj} d_j phi |_cc) for a solved potential: the same
-        discrete gradient as cc_grad_cart."""
-        return self.cc_grad_cart(phi)
+        to_cartesian(g^{dj} d_j phi |_cc) for a solved potential (jd0: the
+        finest level's altered-metric delta)."""
+        geo, grid = self.geo, self.grid
+        grad_fc = self._grad(phi, jd0)
+        grad_cc = torch.stack([fc_to_cc(grad_fc[d], d, grid) * geo.Jinv
+                               for d in range(grid.ndim)])
+        return geo.to_cartesian(grad_cc)
 
     def project_cc(self, vel_cart, vel_bcs: Sequence[FieldBCs], phi0=None,
-                   scale: float = 1.0, purpose: str = "cc"):
+                   scale: float = 1.0, purpose: str = "cc",
+                   jgup_deltas=None):
         """Approximate projection of a CC Cartesian-basis velocity:
-        vel -= scale * to_cartesian(g^{dj} d_j phi |_cc).
+        vel -= scale * to_cartesian(g^{dj} d_j phi |_cc), solved with the
+        per-MG-level altered metric jgup_deltas when given.
         Returns (vel_corrected, phi, info)."""
+        jd0 = jgup_deltas[0] if jgup_deltas is not None else None
         div = self.cc_div(vel_cart, vel_bcs)
-        phi, info = self._solve(div, phi0, purpose=purpose)
-        return vel_cart - scale * self.cc_correction(phi), phi, info
+        phi, info = self._solve(div, phi0, purpose=purpose,
+                                jgup_deltas=jgup_deltas)
+        return vel_cart - scale * self.cc_correction(phi, jd0), phi, info

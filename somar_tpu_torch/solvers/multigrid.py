@@ -10,16 +10,18 @@
   applied automatically for singular (all-Neumann/periodic) problems.
   Both are plain tensor code, as the JAX package leaves them to XLA.
 * Coarse-level metrics are re-derived from the GeoSource on the coarsened
-  grid.
+  grid; residuals restrict J-weighted (volume-weighted) on mapped levels.
 * The V/W-cycle recursion is a Python recursion over the static hierarchy;
   the outer iteration is a Python loop on the residual norm with the
   imin/imax/eps/hang semantics of AMRMG.*, reading one scalar per V-cycle.
 
-Smoother per level: 'gsrb' (default; kernel K5 on uniform levels),
-'jacobi', 'line' (vertical tridiagonal line relaxation, for strongly
-anisotropic levels).  The altered metric of implicit gravity
-(`jgup_deltas`) and array-defined coarse metrics come with slice 3
-(ROADMAP).
+Smoother per level: 'gsrb' (kernel K5 on uniform levels, K7 on mapped
+ones), 'jacobi', 'line' (vertical tridiagonal line relaxation, for strongly
+anisotropic levels), or 'auto' (line where the metric's vertical coupling
+dominates).  `solve(jgup_deltas=...)` solves with the altered metric of
+implicit gravity: one delta per MG level, whose kernel weights each level
+probes once per solve.  Array-defined (raw, AMR) coarse metrics are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -209,10 +211,10 @@ class LevelMultigrid:
 
     def _level_mode(self, op: PoissonOp) -> str:
         """Smoother for one MG level.  'auto' picks vertical line
-        relaxation wherever the vertical coupling dominates the strongest
-        horizontal one by more than 4, else point GSRB (which rides kernel
-        K5 on uniform metrics).  On the uniform metrics ported so far the
-        couplings are 1/dx_d^2."""
+        relaxation wherever the metric makes the vertical coupling dominate
+        the strongest horizontal one by more than 4, cell by cell (the
+        anisotropy that stalls point smoothers is local), else point GSRB
+        (which rides kernel K5 or K7)."""
         mode = self.params.relax_mode
         if mode != "auto":
             return mode
@@ -220,26 +222,45 @@ class LevelMultigrid:
         if g.ndim < 2:
             return "gsrb"
         dv = g.vertical_dir
-        horiz = max(1.0 / g.dx[d] ** 2 for d in range(g.ndim) if d != dv)
-        anis = (1.0 / g.dx[dv] ** 2) / horiz
+        # cellwise coupling strength per direction: face coefficients
+        # averaged to cells, over dx^2 (host numpy, once per level)
+        coup = []
+        for d in range(g.ndim):
+            jg = op.geo.Jgup_diag[d]
+            jg = (jg.detach().cpu().double().numpy()
+                  if isinstance(jg, torch.Tensor) else float(jg)) \
+                * np.ones(g.fc_shape(d))
+            ax = g.axis(d)
+            n = jg.shape[ax]
+            cc = 0.5 * (np.take(jg, range(n - 1), axis=ax)
+                        + np.take(jg, range(1, n), axis=ax))
+            coup.append(cc / (g.dx[d] ** 2))
+        horiz = np.maximum.reduce([c for d, c in enumerate(coup) if d != dv])
+        anis = np.max(coup[dv] / np.maximum(horiz, 1e-300))
         return "line" if anis > 4.0 else "gsrb"
 
     # ------------------------------------------------------------- V-cycle
-    def _vcycle(self, lev: int, phi, rhs, alpha, beta, singular: bool):
+    def _vcycle(self, lev: int, phi, rhs, alpha, beta, singular: bool,
+                deltas=None, overrides=None):
         op = self.ops[lev]
         p = self.params
         mode = self.modes[lev]
+        jd = deltas[lev] if deltas is not None else None
+        ov = overrides[lev] if overrides is not None else None
         if lev == self.depth - 1:
             return self._bottom_solve(op, phi, rhs, alpha, beta, singular,
-                                      mode)
+                                      mode, jd, ov)
 
-        phi = op.relax(phi, rhs, alpha, beta, p.num_smooth_down, mode)
-        res = op.residual(phi, rhs, alpha, beta)
+        phi = op.relax(phi, rhs, alpha, beta, p.num_smooth_down, mode,
+                       jgup_delta=jd, delta_overrides=ov)
+        res = op.residual(phi, rhs, alpha, beta, jgup_delta=jd,
+                          delta_overrides=ov)
         ratio = self.ratios[lev]
         crhs = self._restrict_residual(lev, res, ratio)
         cphi = torch.zeros_like(crhs)
         for _ in range(max(1, p.num_mg)):   # num_mg=2 -> W-cycle
-            cphi = self._vcycle(lev + 1, cphi, crhs, alpha, beta, singular)
+            cphi = self._vcycle(lev + 1, cphi, crhs, alpha, beta, singular,
+                                deltas, overrides)
         if p.prolong_order >= 1:
             corr = prolong_linear_mg(cphi, op.grid, ratio, op.grid.periodic)
         else:
@@ -247,28 +268,36 @@ class LevelMultigrid:
         if singular:
             corr = corr - torch.mean(corr)
         phi = phi + corr.to(phi.dtype)
-        return op.relax(phi, rhs, alpha, beta, p.num_smooth_up, mode)
+        return op.relax(phi, rhs, alpha, beta, p.num_smooth_up, mode,
+                        jgup_delta=jd, delta_overrides=ov)
 
     def _restrict_residual(self, lev: int, res, ratio):
-        """Residual restriction: the J-weighted block average, which on the
-        uniform maps ported so far (scalar J) is plain full weighting."""
-        return restrict_fullweight(res, self.ops[lev].grid, ratio)
+        """Residual restriction: the J-weighted (volume-weighted) block
+        average, which on uniform maps (scalar J) is plain full
+        weighting."""
+        op_f, op_c = self.ops[lev], self.ops[lev + 1]
+        Jf, Jc = op_f.geo.J, op_c.geo.J
+        if not isinstance(Jf, torch.Tensor) and \
+                not isinstance(Jc, torch.Tensor):
+            return restrict_fullweight(res, op_f.grid, ratio)
+        return restrict_fullweight(Jf * res, op_f.grid, ratio) / Jc
 
     # -------------------------------------------------------- bottom solve
     def _bottom_solve(self, op: PoissonOp, phi, rhs, alpha, beta,
-                      singular: bool, mode: str):
+                      singular: bool, mode: str, jd=None, ov=None):
         """Coarsest-level solve.  Default: a few smooths then BiCGStab to
         bottom.eps, relax-preconditioned; smoothing-only bottoms stall MG
         where the coarsest operator is still strongly anisotropic."""
         p = self.params
         if p.bottom_solver != "bicgstab":
-            return op.relax(phi, rhs, alpha, beta, p.num_smooth_bottom, mode)
+            return op.relax(phi, rhs, alpha, beta, p.num_smooth_bottom, mode,
+                            jgup_delta=jd, delta_overrides=ov)
         # cheap pre-smooth knocks out the high-frequency component
         phi = op.relax(phi, rhs, alpha, beta, max(2, p.num_smooth_down),
-                       mode)
+                       mode, jgup_delta=jd, delta_overrides=ov)
 
         def A(x):
-            return op.apply(x, alpha, beta)
+            return op.apply(x, alpha, beta, jgup_delta=jd)
 
         M = None
         if p.num_smooth_precond > 0 and p.precond_mode >= 0:
@@ -278,9 +307,11 @@ class LevelMultigrid:
 
             def M(v):
                 return op.relax(torch.zeros_like(v), v, alpha, beta,
-                                p.num_smooth_precond, pm)
+                                p.num_smooth_precond, pm, jgup_delta=jd,
+                                delta_overrides=ov)
 
-        r = op.residual(phi, rhs, alpha, beta)
+        r = op.residual(phi, rhs, alpha, beta, jgup_delta=jd,
+                        delta_overrides=ov)
         if singular:
             r = op.compat_project(r)
         e, (its, relres) = bicgstab(A, r, M=M, params=p.bottom_params())
@@ -292,7 +323,8 @@ class LevelMultigrid:
 
     # --------------------------------------------------------------- solve
     def solve(self, rhs, phi0=None, alpha=0.0, beta=1.0,
-              homogeneous: bool = True, singular: Optional[bool] = None):
+              homogeneous: bool = True, singular: Optional[bool] = None,
+              jgup_deltas=None):
         """Iterate V-cycles until converged (imin/imax/eps/hang semantics).
         Returns (phi, info) where info = (iters, final_relative_residual),
         an int and a float.
@@ -301,6 +333,7 @@ class LevelMultigrid:
         alpha is the float 0.0.
         With homogeneous=False, inhomogeneous BC values are folded into the
         RHS by linearity (L_inhom(phi) = L_hom(phi) + L_inhom(0)).
+        jgup_deltas: per-MG-level altered-metric deltas (implicit gravity).
         """
         op = self.ops[0]
         p = self.params
@@ -309,9 +342,18 @@ class LevelMultigrid:
         if singular is None:
             singular = self.bcs_singular and isinstance(alpha, float) \
                 and alpha == 0.0
+        jd0 = jgup_deltas[0] if jgup_deltas is not None else None
+        # per-level kernel weights with the delta folded in, probed ONCE
+        # here (loop-invariant across V-cycles); a level whose plan cannot
+        # represent the delta gets None and takes the ghost-fill path
+        overrides = None
+        if jgup_deltas is not None:
+            overrides = [o.delta_kernel_overrides(jd)
+                         for o, jd in zip(self.ops, jgup_deltas)]
+        ov0 = overrides[0] if overrides is not None else None
         if not homogeneous:
             rhs = rhs - op.apply(torch.zeros_like(rhs), alpha, beta,
-                                 homogeneous=False)
+                                 homogeneous=False, jgup_delta=jd0)
         if singular:
             rhs = op.compat_project(rhs)
         phi = torch.zeros_like(rhs) if phi0 is None else phi0.to(self.dtype)
@@ -323,7 +365,9 @@ class LevelMultigrid:
         # the two references coincide (residual(0) = rhs).  r0 (the guess
         # residual) still seeds the hang/best-iterate tracking.
         r_ref, r0 = map(f32, read_scalars(
-            op.norm(rhs), op.norm(op.residual(phi, rhs, alpha, beta))))
+            op.norm(rhs), op.norm(op.residual(phi, rhs, alpha, beta,
+                                              jgup_delta=jd0,
+                                              delta_overrides=ov0))))
         r_ref = max(r_ref, f32(p.norm_thresh))
         r0 = max(r0, f32(p.norm_thresh))
         target = f32(p.eps) * r_ref
@@ -335,11 +379,13 @@ class LevelMultigrid:
         # even the imin cycles.
         best, phi_best, stall, it = r0, phi, 0, 0
         while (it < p.imin or stall < 2) and it < p.imax and best > target:
-            phi = self._vcycle(0, phi, rhs, alpha, beta, singular)
+            phi = self._vcycle(0, phi, rhs, alpha, beta, singular,
+                               jgup_deltas, overrides)
             if singular:
                 phi = phi - torch.mean(phi)
-            rnew = f32(read_scalars(
-                op.norm(op.residual(phi, rhs, alpha, beta)))[0])
+            rnew = f32(read_scalars(op.norm(op.residual(
+                phi, rhs, alpha, beta, jgup_delta=jd0,
+                delta_overrides=ov0)))[0])
             if p.verbosity >= 2:
                 print(f"    MG V-cycle {it + 1}: |r|/|r0| = {rnew / r0:.3e}")
             if rnew < f32(1.0 - p.hang) * best:

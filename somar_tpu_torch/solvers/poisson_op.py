@@ -9,14 +9,20 @@ beta are call-time operands (the viscous Helmholtz coefficient contains
 dt); structural data (Laplacian diagonal, red-black masks, line
 coefficients) is built on first use and kept.
 
-The kernel gate: when the level qualifies (uniform metric, two or more
-dimensions, BCs that fold into boundary-face factors; see
-ops/gsrb_kernels.py) the operator holds a `FusedPlan`, and the homogeneous
-`residual` and `relax_gsrb` go through the GSRB kernels K5-K6 (their plain
-twins for CPU tensors).  The gate is static, decided at construction: a
-level without a plan computes the same quantities from ghost fills.  The
-altered metric of implicit gravity (`jgup_delta`) and the probed-stencil
-kernels of mapped metrics come with slice 3 (ROADMAP).
+The kernel gate, decided at construction on every device: when the level
+qualifies for the uniform-metric kernels (uniform metric, two or more
+dimensions, BCs that fold into boundary-face factors; ops/gsrb_kernels.py)
+the operator holds a `FusedPlan` and the homogeneous `residual` and
+`relax_gsrb` go through K5-K6; otherwise, when the operator's probed 3^nd
+stencil exists and reproduces it (ops/stencil_gsrb_kernels.py), it holds a
+`StencilPlan` and they go through K7-K8 (the plain twins for CPU tensors).
+A level with neither plan computes the same quantities from ghost fills.
+
+`jgup_delta` is the altered metric of implicit gravity (an additive
+per-face modification of J g^ij, projection/altered_metric.py).  Its solves
+pass `delta_overrides`, the stencil weights with the delta folded in
+(`delta_kernel_overrides`, probed once per solve), so they stay on K7-K8;
+without overrides a delta takes the ghost-fill path.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from somar_tpu_torch.core.bc import BCType, FieldBCs
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 from somar_tpu_torch.ops import gsrb_kernels
+from somar_tpu_torch.ops import stencil_gsrb_kernels as sgk
 from somar_tpu_torch.ops.stencil import mac_divergence, mac_gradient, slc
 from somar_tpu_torch.solvers.tridiag import thomas_solve
 
@@ -41,23 +48,54 @@ class PoissonOp:
         # structural arrays, built on first use (the spectral path and the
         # kernel path need none of them)
         self._diag_lap = None
+        self._bc_face_factors = None
         self._rb_masks = None
         self._line_coefs = None
         self._fused_plan = gsrb_kernels.make_plan(self.grid, self.hom_bcs,
                                                   geo)
+        self._stencil_plan = (sgk.build_stencil_plan(self)
+                              if self._fused_plan is None else None)
 
     # ------------------------------------------------------------ operator
-    def apply(self, phi, alpha=0.0, beta=1.0, homogeneous: bool = True):
+    def apply(self, phi, alpha=0.0, beta=1.0, homogeneous: bool = True,
+              jgup_delta=None):
         bcs = self.hom_bcs if homogeneous else self.bcs
-        lap = mac_divergence(mac_gradient(phi, self.geo, bcs), self.geo)
+        lap = mac_divergence(
+            mac_gradient(phi, self.geo, bcs, jgup_delta=jgup_delta),
+            self.geo)
         return alpha * phi + beta * lap
 
     def residual(self, phi, rhs, alpha=0.0, beta=1.0,
-                 homogeneous: bool = True):
-        if homogeneous and self._fused_plan is not None:
-            return gsrb_kernels.helm_residual(self._fused_plan, phi, rhs,
-                                              alpha, beta)
-        return rhs - self.apply(phi, alpha, beta, homogeneous)
+                 homogeneous: bool = True, jgup_delta=None,
+                 delta_overrides=None):
+        if homogeneous and jgup_delta is None:
+            if self._fused_plan is not None:
+                return gsrb_kernels.helm_residual(self._fused_plan, phi, rhs,
+                                                  alpha, beta)
+            if self._stencil_plan is not None:
+                return sgk.stencil_helm_residual(self._stencil_plan, phi,
+                                                 rhs, alpha, beta)
+        if homogeneous and delta_overrides is not None \
+                and self._stencil_plan is not None:
+            Wn, R, _ = delta_overrides
+            return sgk.stencil_helm_residual(self._stencil_plan, phi, rhs,
+                                             alpha, beta, Wn=Wn, R=R)
+        return rhs - self.apply(phi, alpha, beta, homogeneous, jgup_delta)
+
+    def delta_kernel_overrides(self, jgup_delta):
+        """(Wn, R, w0) operands of K7-K8 with jgup_delta folded in, or None
+        when the level has no stencil plan or the plan's offsets may not
+        cover the delta's support.  Costs 2 * (ncolours + 1) operator
+        applications: once per solve, never per relax call."""
+        if jgup_delta is None or self._stencil_plan is None:
+            return None
+        plan = self._stencil_plan
+        got = sgk.delta_stencil_weights(plan, self, jgup_delta)
+        if got is None:
+            return None
+        dWn, dR = got
+        w0 = self.diag(0.0, 1.0, jgup_delta) * torch.ones_like(plan.R)
+        return plan.Wn + dWn, plan.R + dR, w0
 
     def compat_project(self, rhs):
         """Remove the rhs component outside the singular (pure-Neumann)
@@ -65,10 +103,13 @@ class PoissonOp:
         J = self.geo.J * torch.ones_like(rhs)
         return rhs - torch.sum(J * rhs) / torch.sum(J)
 
-    def diag(self, alpha=0.0, beta=1.0):
+    def diag(self, alpha=0.0, beta=1.0, jgup_delta=None):
         if self._diag_lap is None:
-            self._diag_lap = self._build_diag_lap()
-        return alpha + beta * self._diag_lap
+            self._diag_lap = self._diag_lap_of(self.geo.Jgup_diag)
+        d = self._diag_lap
+        if jgup_delta is not None and jgup_delta[0] is not None:
+            d = d + self._diag_lap_of(jgup_delta[0])
+        return alpha + beta * d
 
     # ------------------------------------------------------------ diagonal
     @staticmethod
@@ -99,18 +140,22 @@ class PoissonOp:
             out.append((lo_f, hi_f))
         return out
 
-    def _build_diag_lap(self):
-        """Laplacian diagonal with the BC ghost-formula effect on each
+    def _diag_lap_of(self, jgup_diag_per_d):
+        """Laplacian diagonal of the given per-direction face coefficients
+        (None skips a direction), with the BC ghost-formula effect on each
         boundary-face coupling."""
         grid, geo = self.grid, self.geo
         shape = grid.shape
         kw = dict(dtype=geo.dtype, device=geo.device)
-        factors = self._build_bc_face_factors()
+        if self._bc_face_factors is None:
+            self._bc_face_factors = self._build_bc_face_factors()
         diag = torch.zeros(shape, **kw)
         for d in range(grid.ndim):
+            if jgup_diag_per_d[d] is None:
+                continue
             ax = grid.axis(d)
-            lo_f, hi_f = factors[d]
-            Jg = geo.Jgup_diag[d] * torch.ones(grid.fc_shape(d), **kw)
+            lo_f, hi_f = self._bc_face_factors[d]
+            Jg = jgup_diag_per_d[d] * torch.ones(grid.fc_shape(d), **kw)
             lo = slc(Jg, ax, 0, -1)
             hi = slc(Jg, ax, 1, None)
             diag = diag - (lo * lo_f + hi * hi_f) / (grid.dx[d] ** 2)
@@ -135,37 +180,49 @@ class PoissonOp:
         return self._rb_masks
 
     def relax_jacobi(self, phi, rhs, alpha, beta, iters: int,
-                     weight: float = 0.6):
-        inv_diag = weight / self.diag(alpha, beta)
+                     weight: float = 0.6, jgup_delta=None):
+        inv_diag = weight / self.diag(alpha, beta, jgup_delta)
         for _ in range(iters):
-            phi = phi + inv_diag * self.residual(phi, rhs, alpha, beta)
+            phi = phi + inv_diag * self.residual(phi, rhs, alpha, beta,
+                                                 jgup_delta=jgup_delta)
         return phi
 
     def relax_gsrb(self, phi, rhs, alpha, beta, iters: int,
-                   weight: float = 1.0):
+                   weight: float = 1.0, jgup_delta=None,
+                   delta_overrides=None):
         """Red-black Gauss-Seidel with exact BC-folded coefficients at
-        every cell: kernel K5 where the level has a plan, else half sweeps
-        of the ghost-fill residual under the checkerboard masks."""
-        if self._fused_plan is not None:
-            return gsrb_kernels.gsrb_sweeps(self._fused_plan, phi, rhs,
-                                            alpha, beta, iters, weight)
+        every cell: kernel K5 or K7 where the level has a plan (K7 with the
+        delta's overrides under an altered metric), else half sweeps of
+        the ghost-fill residual under the checkerboard masks."""
+        if jgup_delta is None:
+            if self._fused_plan is not None:
+                return gsrb_kernels.gsrb_sweeps(self._fused_plan, phi, rhs,
+                                                alpha, beta, iters, weight)
+            if self._stencil_plan is not None:
+                return sgk.stencil_gsrb_sweeps(self._stencil_plan, phi, rhs,
+                                               alpha, beta, iters, weight)
+        if delta_overrides is not None and self._stencil_plan is not None:
+            Wn, R, w0 = delta_overrides
+            return sgk.stencil_gsrb_sweeps(self._stencil_plan, phi, rhs,
+                                           alpha, beta, iters, weight,
+                                           Wn=Wn, R=R, w0=w0)
         red, black = self._masks()
-        inv_diag = weight / self.diag(alpha, beta)
+        inv_diag = weight / self.diag(alpha, beta, jgup_delta)
         for _ in range(iters):
             for mask in (red, black):
-                r = self.residual(phi, rhs, alpha, beta)
+                r = self.residual(phi, rhs, alpha, beta,
+                                  jgup_delta=jgup_delta)
                 phi = torch.where(mask, phi + inv_diag * r, phi)
         return phi
 
-    def _build_vertical_line_parts(self):
-        """Static vertical tridiagonal structure: (A_lo, A_hi) face coefs
-        scaled by Jinv/dz^2, edge rows zeroed."""
+    def _line_coupling(self, jgup_vert):
+        """Vertical tridiagonal couplings (A_lo, A_hi) of the face
+        coefficients jgup_vert, scaled by Jinv/dz^2, edge rows zeroed."""
         grid, geo = self.grid, self.geo
-        dvert = grid.vertical_dir
-        dz = grid.dx[dvert]
+        dz = grid.dx[grid.vertical_dir]
         nz = grid.shape[0]
-        Jg = geo.Jgup_diag[dvert] * torch.ones(
-            grid.fc_shape(dvert), dtype=geo.dtype, device=geo.device)
+        Jg = jgup_vert * torch.ones(grid.fc_shape(grid.vertical_dir),
+                                    dtype=geo.dtype, device=geo.device)
         scale = geo.Jinv / (dz * dz)
         a = (slc(Jg, 0, 0, -1) * scale).clone()
         a[0] = 0.0
@@ -175,10 +232,12 @@ class PoissonOp:
 
     def _vertical_line_parts(self):
         if self._line_coefs is None:
-            self._line_coefs = self._build_vertical_line_parts()
+            self._line_coefs = self._line_coupling(
+                self.geo.Jgup_diag[self.grid.vertical_dir])
         return self._line_coefs
 
-    def relax_line_vertical(self, phi, rhs, alpha, beta, iters: int):
+    def relax_line_vertical(self, phi, rhs, alpha, beta, iters: int,
+                            jgup_delta=None):
         """Vertical line relaxation: exact tridiagonal solve along z per
         column with horizontal terms lagged.  The line-block diagonal is
         the FULL operator diagonal: dropping the horizontal self-coupling
@@ -186,26 +245,38 @@ class PoissonOp:
         a_s, c_s = self._vertical_line_parts()
         a = beta * a_s
         c = beta * c_s
-        b = self.diag(alpha, beta) * torch.ones_like(phi)
+        if jgup_delta is not None and jgup_delta[0] is not None:
+            dd = jgup_delta[0][self.grid.vertical_dir]
+            if dd is not None:
+                da, dc = self._line_coupling(dd)
+                a = a + beta * da
+                c = c + beta * dc
+        b = self.diag(alpha, beta, jgup_delta) * torch.ones_like(phi)
         red, black = self._masks()
         inv_diag = 1.0 / b
         for _ in range(iters):
             # the line solve kills vertical error; the GSRB sweep smooths
             # the horizontal high frequencies the line solve cannot
-            r = self.residual(phi, rhs, alpha, beta)
+            r = self.residual(phi, rhs, alpha, beta, jgup_delta=jgup_delta)
             phi = phi + thomas_solve(a, b, c, r)
             for mask in (red, black):
-                r = self.residual(phi, rhs, alpha, beta)
+                r = self.residual(phi, rhs, alpha, beta,
+                                  jgup_delta=jgup_delta)
                 phi = torch.where(mask, phi + inv_diag * r, phi)
         return phi
 
-    def relax(self, phi, rhs, alpha, beta, iters: int, mode: str = "gsrb"):
+    def relax(self, phi, rhs, alpha, beta, iters: int, mode: str = "gsrb",
+              jgup_delta=None, delta_overrides=None):
         if mode == "jacobi":
-            return self.relax_jacobi(phi, rhs, alpha, beta, iters)
+            return self.relax_jacobi(phi, rhs, alpha, beta, iters,
+                                     jgup_delta=jgup_delta)
         if mode == "gsrb":
-            return self.relax_gsrb(phi, rhs, alpha, beta, iters)
+            return self.relax_gsrb(phi, rhs, alpha, beta, iters,
+                                   jgup_delta=jgup_delta,
+                                   delta_overrides=delta_overrides)
         if mode == "line":
-            return self.relax_line_vertical(phi, rhs, alpha, beta, iters)
+            return self.relax_line_vertical(phi, rhs, alpha, beta, iters,
+                                            jgup_delta=jgup_delta)
         if mode == "none":
             return phi
         raise ValueError(f"unknown relax mode {mode}")

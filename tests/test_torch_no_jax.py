@@ -1,7 +1,9 @@
 """The port runs without JAX: a fresh interpreter imports every module of
-somar_tpu_torch, builds and steps a level on the CPU with the spectral and
-with the multigrid pressure solver, and has imported neither jax nor the
-JAX package."""
+somar_tpu_torch (the mapped geometry, the probed-stencil kernels K7-K8, the
+altered metric and the stratification utilities among them), builds and
+steps a level on the CPU with the spectral and with the multigrid pressure
+solver, steps the mapped implicit-gravity BeamGeneration level, and has
+imported neither jax nor the JAX package."""
 
 import os
 import subprocess
@@ -32,6 +34,13 @@ assert level3.projector.method == "mg"
 state3 = level3.post_initialize(level3.initial_state())
 state3 = level3.advance(state3, 0.02)
 assert bool(torch.isfinite(state3.vel).all())
+level4, _ = entry.build_beam_level(40, 32, device="cpu")
+assert level4._altered_metric is not None
+assert level4.projector.mg.ops[0]._stencil_plan is not None
+state4 = level4.post_initialize(level4.initial_state())
+state4 = level4.advance(state4, level4.compute_dt(state4))
+assert bool(torch.isfinite(state4.vel).all())
+assert bool(torch.isfinite(state4.scalars).all())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "somar_tpu" or m.startswith("somar_tpu."))
