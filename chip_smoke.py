@@ -11,21 +11,28 @@ non-zero:
      probed-stencil kernels K7-K8 with nvcc for sm_90a, the three libraries
      side by side;
   3. kernel parity: each kernel against its plain PyTorch twin on the same
-     card tensors, full arrays, |err| <= 1e-6 max|input|: K1-K4 at the
+     card tensors, full arrays: K1-K4, K6 and K8 within 1e-6 max|input|,
+     the smoothers K5 and K7 bitwise (max abs diff 0.0) in each of their
+     variants (the plan's choice, then "whole" where the level fits one
+     block's shared memory and "tiled", each forced).  K1-K4 at the
      512x128x128 padded shape (136, 136, 520) f32, every stencil axis and
      mode; K5-K6 at (128, 128, 512) with the pressure BCs and with mixed
-     BCs, in 2D, on the coarse multigrid shapes, on periodic extents 2 and
-     3, and once in f64; K7-K8 on the seven mapped levels of
+     BCs, in 2D, on periodic extents 2 and 3, and on every multigrid level
+     of main path 2 in f32 and f64; K7-K8 on the seven mapped levels of
      tests/test_torch_stencil_kernels.py (2D and 3D, periodic extents 3
-     and 4), with and without the implicit-gravity delta overrides, on the
-     finest BeamGeneration level (512, 640) and once in f64;
-  4. kernel timing: median per-launch time of each kernel and of its twin
-     (CUDA events), K1-K4 averaged over the stencil axes, K5 per sweep (two
-     launches) and K6 per call at (128, 128, 512) f32; K7 per sweep and K8
-     per call at the BeamGeneration level (512, 640), K = 8, and at a
-     twisted 3D level (128, 256, 256), K = 18 (the most a mapped operator
-     probes in 3D), f32; beside each the least
-     time the card could take for the same bytes and operations;
+     and 4) and on the eight multigrid levels of main path 3 that have a
+     stencil plan, in f32 and f64, with and without the implicit-gravity
+     delta overrides; then the K5/K7 launches of one 4-sweep relax call on
+     every level of paths 2 and 3 (1 where the level takes the whole-level
+     variant, 4 where it takes the tiled one);
+  4. kernel timing: median time of one call of each kernel and of its twin
+     (CUDA events) and the kernel's own device time (torch.profiler), K1-K4
+     averaged over the stencil axes, K5 per sweep (one tiled launch) and K6
+     per call at (128, 128, 512) f32; K7 per sweep and K8 per call at the
+     BeamGeneration level (512, 640), K = 8, and at a twisted 3D level
+     (128, 256, 256), K = 18 (the most a mapped operator probes in 3D),
+     f32; beside each the least time the card could take for the same
+     bytes and operations;
   5. solve and step parity: one multigrid solve at 64x16x32 on the card
      against the CPU from the same rhs (phi within 1e-4 max|phi|); the
      64x16x32 lock exchange stepped 5 times at a fixed dt on the card and on
@@ -39,7 +46,7 @@ non-zero:
      (MGParams(eps=1e-5, imax=12)) through entry.run (10 steps), the same
      checks plus launches of every kernel K1-K6, the V-cycle counts and
      residuals of the first and the last step; then 3 timed samples of 5
-     steps;
+     steps with the kernel launches per step;
   8. the mapped step on the card against the CPU: one implicit-gravity
      multigrid solve (phi within 1e-4 max|phi|) and 5 steps of the 40x32
      BeamGeneration level (max|diff| / max|field| <= 1e-3);
@@ -56,6 +63,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -112,6 +120,10 @@ STENCIL_ARRAYS = {"stencil_gsrb_sweeps": (lambda K: K + 5,
                                           lambda K: 3 * K + 10),
                   "stencil_helm_residual": (lambda K: K + 4,
                                             lambda K: 3 * K + 5)}
+#: the CUDA kernel names of the smoothers' two variants (neither K5's nor
+#: K7's is a substring of the other's)
+K5_NAMES = ("uniform_gsrb_whole_kernel", "uniform_gsrb_tiled_kernel")
+K7_NAMES = ("stencil_gsrb_whole_kernel", "stencil_gsrb_tiled_kernel")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -203,10 +215,10 @@ def kernel_parity(torch, ck, device, shape3=SHAPE3, shape2=SHAPE2):
 
 
 def median_ms(torch, fn, reps=50):
-    """Median time of one call of fn over `reps` calls after warm-up (CUDA
-    events)."""
-    for _ in range(3):
-        fn()
+    """Median time of one call of fn over `reps` calls after 0.2 s of
+    back-to-back calls (CUDA events)."""
+    from somar_tpu_torch.smoother_bench import warm
+    warm(torch, fn)
     samples = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -220,20 +232,20 @@ def median_ms(torch, fn, reps=50):
 
 
 def kernel_timing(torch, ck, device):
-    """{kernel: (ms, plain_ms)}: median per-launch times, averaged over the
-    3D stencil axes."""
+    """{kernel: (ms, plain_ms, device_ms)}: median per-launch times and the
+    kernels' own device time, averaged over the 3D stencil axes."""
     per = {}
     for name, label, _, kern, plain in kernel_cases(torch, ck, device,
                                                     SHAPE3, SHAPE2):
         if not label.startswith("3d") or ("lim=False" in label) \
                 or (name == "ctu_final" and "div" not in label):
             continue      # the scalar-path variants: limited K1, want_div K3
-        times = [median_ms(torch, kern), median_ms(torch, plain)]
+        times = [median_ms(torch, kern), median_ms(torch, plain),
+                 device_ms(torch, kern, (f"{name}_kernel",))]
         say(f"timing {name:16s} {label:18s} kernel={times[0]:.4f} ms "
-            f"plain={times[1]:.4f} ms")
+            f"plain={times[1]:.4f} ms kernel device time={times[2]:.4f} ms")
         per.setdefault(name, []).append(times)
-    return {name: (statistics.mean(t[0] for t in v),
-                   statistics.mean(t[1] for t in v))
+    return {name: tuple(statistics.mean(t[i] for t in v) for i in range(3))
             for name, v in per.items()}
 
 
@@ -279,9 +291,39 @@ GSRB_CASES = {
 GSRB_COEFS = ((0.0, 1.0), (1.0, -1e-6))     # Poisson, viscous Helmholtz
 
 
+#: the multigrid levels of main path 2 (array shapes), each with the
+#: pressure BCs in f32 and f64
+PATH2_LEVELS = [(128, 128, 512), (64, 64, 256), (32, 32, 128), (16, 16, 64),
+                (8, 8, 32), (4, 4, 16), (2, 2, 8), (2, 2, 4), (2, 2, 2)]
+for _shape in PATH2_LEVELS:
+    for _dt in ("float32", "float64"):
+        GSRB_CASES[f"path2 {_shape} f{_dt[5:]}"] = (
+            _shape[::-1], (False, True, False), "NPN", "NPN", _dt)
+
+
+def smoother_variants(rb, shape, itemsize):
+    """The variants to hold against the twin: the plan's own choice, then
+    each one forced where it fits."""
+    fits = 2 * math.prod(shape) * itemsize <= rb.SMEM_PER_BLOCK
+    return [None, rb.TILED] + ([rb.WHOLE] if fits else [])
+
+
+def smoother_check(name, label, got, want, line):
+    """Bitwise: the smoothers round as their twins do."""
+    err = float((got - want).abs().max())
+    ok = err == 0.0 and got.shape == want.shape \
+        and bool(got.isfinite().all())
+    say(f"{line} max_abs_err={err:.3e} limit=0 (bitwise) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseError(f"{name} {label}: kernel and twin disagree")
+    return err
+
+
 def gsrb_parity(torch, gk, device):
-    """Returns {kernel: max abs err over its cases}; raises on a case above
-    PARITY_RTOL * max|input|."""
+    """Returns {kernel: max abs err over its cases}; raises where K5 differs
+    from its twin in any bit or K6 by more than PARITY_RTOL * max|input|."""
+    from somar_tpu_torch.ops import rb_sweeps as rb
     worst = {"gsrb_sweeps": 0.0, "helm_residual": 0.0}
     gen = torch.Generator(device=device).manual_seed(4321)
     for label, (nx, per, lo, hi, dtname) in GSRB_CASES.items():
@@ -292,47 +334,102 @@ def gsrb_parity(torch, gk, device):
         limit = PARITY_RTOL * max(float(phi.abs().max()),
                                   float(rhs.abs().max()))
         for alpha, beta in GSRB_COEFS:
-            runs = [("gsrb_sweeps", f"iters={it}",
-                     gk.gsrb_sweeps(plan, phi, rhs, alpha, beta, it),
-                     gk.gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, it))
-                    for it in (1, 4)]
-            runs.append(("helm_residual", "",
-                         gk.helm_residual(plan, phi, rhs, alpha, beta),
-                         gk.helm_residual_plain(plan, phi, rhs, alpha, beta)))
+            for it in (1, 4):
+                want = gk.gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, it)
+                for var in smoother_variants(rb, plan.shape,
+                                             phi.element_size()):
+                    got = gk.gsrb_sweeps(plan, phi, rhs, alpha, beta, it,
+                                         variant=var)
+                    torch.cuda.synchronize()
+                    worst["gsrb_sweeps"] = max(
+                        worst["gsrb_sweeps"], smoother_check(
+                            "gsrb_sweeps", label, got, want,
+                            f"parity gsrb_sweeps      {label:22s} a={alpha} "
+                            f"b={beta} iters={it} variant={var or 'plan'}"))
+            got = gk.helm_residual(plan, phi, rhs, alpha, beta)
+            want = gk.helm_residual_plain(plan, phi, rhs, alpha, beta)
             torch.cuda.synchronize()
-            for name, what, got, want in runs:
-                err = float((got - want).abs().max())
-                ok = err <= limit and got.shape == want.shape \
-                    and bool(torch.isfinite(got).all())
-                say(f"parity {name:16s} {label:22s} a={alpha} b={beta} "
-                    f"{what:8s} max_abs_err={err:.3e} limit={limit:.3e} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise PhaseError(f"{name} {label}: kernel and twin "
-                                     "disagree")
-                worst[name] = max(worst[name], err)
+            err = float((got - want).abs().max())
+            ok = err <= limit and got.shape == want.shape \
+                and bool(torch.isfinite(got).all())
+            say(f"parity helm_residual    {label:22s} a={alpha} b={beta} "
+                f"max_abs_err={err:.3e} limit={limit:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseError(f"helm_residual {label}: kernel and twin "
+                                 "disagree")
+            worst["helm_residual"] = max(worst["helm_residual"], err)
     return worst
 
 
+def relax_launches(torch, ops, mod, name, label):
+    """K5/K7 launches of one 4-sweep relax call on each multigrid level:
+    {shape: launches}; raises unless a level with a plan makes 1 launch
+    (whole-level variant) or 4 (tiled), as rb_sweeps chooses."""
+    from somar_tpu_torch.ops import rb_sweeps as rb
+    out = {}
+    for op in ops:
+        plan = op._fused_plan if name == "gsrb_sweeps" else op._stencil_plan
+        phi = torch.zeros(op.grid.shape, device=op.geo.device,
+                          dtype=op.geo.dtype)
+        rhs = torch.ones_like(phi)
+        mod.reset_launch_counts()
+        op.relax_gsrb(phi, rhs, 0.0, 1.0, 4)
+        torch.cuda.synchronize()
+        n = mod.launch_counts()[name]
+        want = 0
+        if plan is not None:
+            var, _ = rb.choose_variant(plan.shape, phi.element_size())
+            want = rb.launches_per_call(var, 4)
+        out[str(tuple(op.grid.shape))] = n
+        if n != want:
+            raise PhaseError(f"{label} level {op.grid.shape}: {n} {name} "
+                             f"launches for a 4-sweep relax, not {want}")
+    say(f"{label}: {name} launches per 4-sweep relax call by level "
+        f"{json.dumps(out)}")
+    return out
+
+
+def path2_relax_launches(torch, gk, device, mg):
+    """K5 launches of a 4-sweep relax call on each multigrid level of main
+    path 2, as LevelMultigrid builds them on the card."""
+    from somar_tpu_torch.core.grid import Grid
+    from somar_tpu_torch.geometry.geo_source import CartesianMap
+    from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+    from somar_tpu_torch.projection.projector import pressure_bcs
+    from somar_tpu_torch.solvers.multigrid import LevelMultigrid
+    grid = Grid(nx=(512, 128, 128), dx=(15.0 / 512, 2.0 / 128, 2.0 / 128),
+                periodic=(False, True, False))
+    geo = build_level_geometry(grid, CartesianMap(), device=device)
+    levels = LevelMultigrid(geo, pressure_bcs(grid), mg)
+    shapes = [tuple(op.grid.shape) for op in levels.ops]
+    if shapes != PATH2_LEVELS:
+        raise PhaseError(f"path 2 multigrid levels {shapes}")
+    return relax_launches(torch, levels.ops, gk, "gsrb_sweeps",
+                          "main path 2")
+
+
 def gsrb_timing(torch, gk, device):
-    """{kernel: (ms, plain_ms)} at GSRB_SHAPE f32 with the pressure BCs:
-    K5 per sweep (iters=1: two launches), K6 per call."""
+    """{kernel: (ms, plain_ms, device_ms)} at GSRB_SHAPE f32 with the
+    pressure BCs: K5 per sweep (iters=1: one tiled launch), K6 per call."""
     nx, per, lo, hi, _ = GSRB_CASES["pressure 128,128,512"]
     plan = gsrb_plan(gk, nx, per, lo, hi)
     gen = torch.Generator(device=device).manual_seed(99)
     phi, rhs = (torch.randn(plan.shape, generator=gen, device=device)
                 for _ in range(2))
     out = {}
-    for name, kern, plain in (
-            ("gsrb_sweeps",
+    for name, cu_names, kern, plain in (
+            ("gsrb_sweeps", K5_NAMES,
              lambda: gk.gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, 1),
              lambda: gk.gsrb_sweeps_plain(plan, phi, rhs, 0.0, 1.0, 1)),
-            ("helm_residual",
+            ("helm_residual", ("helm_residual_kernel",),
              lambda: gk.helm_residual(plan, phi, rhs, 0.0, 1.0),
              lambda: gk.helm_residual_plain(plan, phi, rhs, 0.0, 1.0))):
-        out[name] = (median_ms(torch, kern), median_ms(torch, plain))
+        out[name] = (median_ms(torch, kern), median_ms(torch, plain),
+                     device_ms(torch, kern, cu_names))
         say(f"timing {name:16s} {'pressure 128,128,512':22s} "
-            f"kernel={out[name][0]:.4f} ms plain={out[name][1]:.4f} ms")
+            f"kernel={out[name][0]:.4f} ms plain={out[name][1]:.4f} ms "
+            f"kernel device time={out[name][2]:.4f} ms")
     return out
 
 
@@ -415,7 +512,7 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     """Drive one main path through entry.run and check it; `counters` are
     the kernel modules whose launch counts are set to 0 just before the run
     and read just after (every counted kernel must have been launched).
-    Returns (launches, ms/step)."""
+    Returns (launches of the run, launches per timed step, ms/step)."""
     from somar_tpu_torch.solvers.host_reads import read_scalars
     level, grid = entry.build_level(nx=nx, nz=nz, ny=ny, device=device,
                                     **level_kw)
@@ -467,6 +564,8 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     k = 0
     times = []
     reads0 = read_scalars.count
+    for mod in counters:
+        mod.reset_launch_counts()
     for _ in range(samples):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -476,6 +575,10 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / sample_steps)
     reads = (read_scalars.count - reads0) / (samples * sample_steps)
+    per_step = {}
+    for mod in counters:
+        per_step.update({n: c / (samples * sample_steps)
+                         for n, c in mod.launch_counts().items()})
     diag = {}
     state = level.advance(state, dt, diag=diag)
     if not bool(torch.isfinite(state.vel).all()):
@@ -486,9 +589,10 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
         + ",".join(f"{1e3 * t:.3f}" for t in times)
         + f" cell-updates/s={grid.ncells / (ms * 1e-3):.4e}"
         f" peak_mem_bytes={peak} solver_host_reads/step={reads:.1f}"
+        f" launches/step={json.dumps(per_step)}"
         f" max|div| of the projected advecting velocity="
         f"{float(diag['max_mac_div']):.3e} on {smi}")
-    return launches, ms
+    return launches, per_step, ms
 
 
 # --------------------------------------------------------------------------
@@ -583,9 +687,47 @@ def _delta_overrides(torch, op, gen):
     return op.delta_kernel_overrides((diag, full))
 
 
+def stencil_parity_case(torch, sgk, label, plan, phi, rhs, variants, worst):
+    """K7 in each variant bitwise, K8 within PARITY_RTOL * max|input|, with
+    the plan's weights and with each set of overrides in `variants`."""
+    from somar_tpu_torch.ops import rb_sweeps as rb
+    limit = PARITY_RTOL * max(float(phi.abs().max()), float(rhs.abs().max()))
+    for what, ov in variants:
+        for it in (1, 3):
+            want = sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.4, 1.7, it,
+                                                 **ov)
+            for var in smoother_variants(rb, plan.shape, phi.element_size()):
+                got = sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.4, 1.7, it,
+                                              variant=var, **ov)
+                torch.cuda.synchronize()
+                worst["stencil_gsrb_sweeps"] = max(
+                    worst["stencil_gsrb_sweeps"], smoother_check(
+                        "stencil_gsrb_sweeps", label, got, want,
+                        f"parity stencil_gsrb_sweeps {label:24s} "
+                        f"K={plan.K:2d} {what:5s} iters={it} "
+                        f"variant={var or 'plan'}"))
+        res_ov = {k: v for k, v in ov.items() if k != "w0"}
+        a = sgk.stencil_helm_residual(plan, phi, rhs, 0.4, 1.7, **res_ov)
+        b = sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.4, 1.7,
+                                            **res_ov)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        ok = err <= limit and a.shape == b.shape \
+            and bool(torch.isfinite(a).all())
+        say(f"parity stencil_helm_residual {label:24s} K={plan.K:2d} "
+            f"{what:5s} max_abs_err={err:.3e} limit={limit:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseError(f"stencil_helm_residual {label}: kernel and "
+                             "twin disagree")
+        worst["stencil_helm_residual"] = max(worst["stencil_helm_residual"],
+                                             err)
+
+
 def stencil_parity(torch, sgk, device):
-    """Returns {kernel: max abs err over its cases}; raises on a case above
-    PARITY_RTOL * max|input|."""
+    """Returns {kernel: max abs err over its cases}; raises where K7
+    differs from its twin in any bit or K8 by more than PARITY_RTOL *
+    max|input|."""
     worst = {"stencil_gsrb_sweeps": 0.0, "stencil_helm_residual": 0.0}
     gen = torch.Generator(device=device).manual_seed(2718)
     for label, (nx, per, kind, bcs, dtname) in STENCIL_CASES.items():
@@ -593,63 +735,68 @@ def stencil_parity(torch, sgk, device):
         plan = op._stencil_plan
         phi, rhs = (torch.randn(plan.shape, generator=gen, device=device,
                                 dtype=plan.Wn.dtype) for _ in range(2))
-        limit = PARITY_RTOL * max(float(phi.abs().max()),
-                                  float(rhs.abs().max()))
         variants = [("plain", {})]
         got = _delta_overrides(torch, op, gen)
         if got is not None:
             variants.append(("delta", dict(zip(("Wn", "R", "w0"), got))))
-        for what, ov in variants:
-            res_ov = {k: v for k, v in ov.items() if k != "w0"}
-            runs = [("stencil_gsrb_sweeps", f"iters={it}",
-                     sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.4, 1.7, it,
-                                             **ov),
-                     sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.4, 1.7,
-                                                   it, **ov))
-                    for it in (1, 3)]
-            runs.append(("stencil_helm_residual", "",
-                         sgk.stencil_helm_residual(plan, phi, rhs, 0.4, 1.7,
-                                                   **res_ov),
-                         sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.4,
-                                                         1.7, **res_ov)))
-            torch.cuda.synchronize()
-            for name, it, a, b in runs:
-                err = float((a - b).abs().max())
-                ok = err <= limit and a.shape == b.shape \
-                    and bool(torch.isfinite(a).all())
-                say(f"parity {name:21s} {label:18s} K={plan.K:2d} {what:5s} "
-                    f"{it:8s} max_abs_err={err:.3e} limit={limit:.3e} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise PhaseError(f"{name} {label}: kernel and twin "
-                                     "disagree")
-                worst[name] = max(worst[name], err)
+        stencil_parity_case(torch, sgk, label, plan, phi, rhs, variants,
+                            worst)
     return worst
 
 
-def device_ms(torch, fn, kernel, calls=20):
-    """Device time per call of fn spent in CUDA kernels whose name starts
-    with `kernel` (torch.profiler): the kernel's own time, without the
-    host's launch gaps that a CUDA-event pair around one call includes."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key
-             and e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / calls
+#: the multigrid levels of main path 3 with a stencil plan
+PATH3_PLAN_LEVELS = [(512, 640), (256, 640), (128, 640), (64, 640),
+                     (32, 320), (16, 160), (8, 80), (4, 40)]
+
+
+def path3_levels(torch, entry, sgk, device, worst):
+    """K7-K8 on the plan levels of the 640x512 BeamGeneration level as
+    entry.build_beam_level builds them, in f32 and f64 (the plan's weights
+    in f64), with and without the delta overrides of one implicit-gravity
+    solve; then K5/K7 launches of a 4-sweep relax call by level."""
+    level, _ = entry.build_beam_level(640, 512, device=device)
+    ops = level.projector.mg.ops
+    shapes = [tuple(op.grid.shape) for op in ops]
+    if shapes[:8] != PATH3_PLAN_LEVELS or any(
+            op._stencil_plan is None for op in ops[:8]):
+        raise PhaseError(f"path 3 multigrid levels {shapes}")
+    deltas = level._altered_metric.jgup_delta_list(
+        level.params.gravity_theta * 20.0)
+    gen = torch.Generator(device=device).manual_seed(314)
+    for op, jd in zip(ops[:8], deltas):
+        plan = op._stencil_plan
+        sets = [("plain", dict(Wn=plan.Wn, R=plan.R, w0=plan.D))]
+        got = op.delta_kernel_overrides(jd)
+        if got is None:
+            raise PhaseError(f"no delta overrides on {plan.shape}")
+        sets.append(("delta", dict(zip(("Wn", "R", "w0"), got))))
+        for dtype in (torch.float32, torch.float64):
+            phi, rhs = (torch.randn(plan.shape, generator=gen, device=device,
+                                    dtype=dtype) for _ in range(2))
+            variants = [(what, {k: v.to(dtype) for k, v in ov.items()})
+                        for what, ov in sets]
+            stencil_parity_case(
+                torch, sgk, f"path3 {plan.shape} {str(dtype)[-7:]}", plan,
+                phi, rhs, variants, worst)
+    return relax_launches(torch, ops, sgk, "stencil_gsrb_sweeps",
+                          "main path 3")
+
+
+def device_ms(torch, fn, kernels, calls=20):
+    """Device time per call of fn spent in CUDA kernels whose name contains
+    one of `kernels` (torch.profiler): the kernel's own time, without the
+    host's launch gaps that a CUDA-event pair around one call includes.
+    The median of 5 windows of `calls` calls, each after 50 ms of
+    back-to-back calls (the card at its clocks under load)."""
+    from somar_tpu_torch.smoother_bench import device_ms as dev
+    return dev(torch, fn, kernels, calls)
 
 
 def stencil_timing(torch, sgk, device):
     """{label: (ncells, K, {kernel: (ms, plain_ms, device_ms)})}: K7 per
-    sweep (iters=1: two launches), K8 per call, f32, with the plan's own
-    weights; ms and plain_ms from CUDA events around one call, device_ms
-    the kernels' own time (profiler)."""
+    sweep (iters=1: one tiled launch), K8 per call, f32, with the plan's
+    own weights; ms and plain_ms from CUDA events around one call,
+    device_ms the kernels' own time (profiler)."""
     out = {}
     gen = torch.Generator(device=device).manual_seed(31)
     for label, (nx, per, kind, bcs, dtname) in STENCIL_TIMING.items():
@@ -659,11 +806,11 @@ def stencil_timing(torch, sgk, device):
                     for _ in range(2))
         times = {}
         for name, cu_name, kern, plain in (
-                ("stencil_gsrb_sweeps", "stencil_gsrb_half_kernel",
+                ("stencil_gsrb_sweeps", K7_NAMES,
                  lambda: sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, 1),
                  lambda: sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.0,
                                                        1.0, 1)),
-                ("stencil_helm_residual", "stencil_helm_residual_kernel",
+                ("stencil_helm_residual", ("stencil_helm_residual_kernel",),
                  lambda: sgk.stencil_helm_residual(plan, phi, rhs, 0.0, 1.0),
                  lambda: sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.0,
                                                          1.0))):
@@ -857,13 +1004,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
 
+    mg = MGParams(eps=1e-5, imax=12)
     errs = kernel_parity(torch, ck, device)
     errs.update(gsrb_parity(torch, gk, device))
     errs.update(stencil_parity(torch, sgk, device))
+    relax = {"main path 2": path2_relax_launches(torch, gk, device, mg),
+             "main path 3": path3_levels(torch, entry, sgk, device, errs)}
     timing = kernel_timing(torch, ck, device)
     timing.update(gsrb_timing(torch, gk, device))
     st_timing = stencil_timing(torch, sgk, device)
-    mg = MGParams(eps=1e-5, imax=12)
     solve_parity(torch, device, mg)
     step_parity(torch, entry, device)
     step_parity(torch, entry, device, rtol=MG_STEP_RTOL,
@@ -872,10 +1021,10 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         raise PhaseError("TF32 is on: the levels' spectral solvers switch "
                          "it off")
-    launches, _ = main_path(torch, entry, (ck,), device, smi)
-    launches_mg, _ = main_path(torch, entry, (ck, gk), device, smi,
-                               label="multigrid", nsteps=10, sample_steps=5,
-                               pressure_solver="mg", mg=mg)
+    launches, _, _ = main_path(torch, entry, (ck,), device, smi)
+    launches_mg, per_step_mg, _ = main_path(
+        torch, entry, (ck, gk), device, smi, label="multigrid", nsteps=10,
+        sample_steps=5, pressure_solver="mg", mg=mg)
     ig_solve_parity(torch, entry, device)
     beam_step_parity(torch, entry, device)
     launches_beam, per_step_beam, _ = beam_path(torch, entry, (ck, gk, sgk),
@@ -904,15 +1053,19 @@ def main() -> int:
                       else GSRB_SHAPE[0] * GSRB_SHAPE[1] * GSRB_SHAPE[2])
             bound, by = bound_ms(name, ncells)
             entry_.update(launches=launches.get(name, launches_mg[name]),
-                          ms=timing[name][0], plain_ms=timing[name][1])
+                          ms=timing[name][0], plain_ms=timing[name][1],
+                          device_ms=timing[name][2])
         entry_.update(
             launches_multigrid_path=launches_mg.get(name, 0),
+            launches_per_multigrid_step=per_step_mg.get(name, 0.0),
             launches_beam_path=launches_beam.get(name, 0),
             launches_per_beam_step=per_step_beam.get(name, 0.0),
             max_abs_err=errs[name], bound_ms=bound, bound_by=by,
             # no single PyTorch call computes any of these functions
             library_ms=None)
         kernels.append(entry_)
+    say(f"smoother launches per 4-sweep relax call by level: "
+        f"{json.dumps(relax)}")
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

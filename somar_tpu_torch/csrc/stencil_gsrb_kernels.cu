@@ -1,10 +1,10 @@
 // Red-black Gauss-Seidel and residual kernels K7-K8 for Hopper (sm_90a),
 // replacing the Pallas TPU kernels of somar_tpu/ops/stencil_gsrb_pallas.py:
 //
-//   K7 stencil_gsrb_half (two launches per sweep) <- gsrb_sweeps
-//                                                   (_small_kernel,
-//                                                    _slab_kernel)
-//   K8 stencil_helm_residual                      <- helm_residual
+//   K7 stencil_gsrb_whole  (one launch per smoothing call) <- gsrb_sweeps
+//      stencil_gsrb_tiled  (one launch per sweep)             (_small_kernel,
+//                                                              _slab_kernel)
+//   K8 stencil_helm_residual                               <- helm_residual
 //
 // Operator: L[p] = alpha*p + beta*lap(p) on a mapped metric, with the
 // interior stencil probed from the plain operator
@@ -22,27 +22,33 @@
 // Arrays are contiguous, unpadded cell arrays of two or three axes, viewed
 // as (n0, n1, n2) with an inactive leading axis of extent 1 in 2D; the
 // kernels are templated on the number of active axes.  W is K contiguous
-// planes of the array's shape.  Design: one thread per cell (grid-stride
-// loop), no shared memory; neighbour re-reads of p hit L1/L2.  The kernels
-// are bound by device-memory bandwidth: a half sweep reads p, rhs, the K
-// weight planes, R and w0 and writes p (K+5 arrays) for about 3K flops a
-// cell.
+// planes of the array's shape.  The kernels are bound by device-memory
+// bandwidth: a sweep must read p, rhs, the K weight planes, R and w0 and
+// write p (K+5 arrays) for about 3K flops a cell.
 //
-// A half sweep reads p_in and writes EVERY cell of p_out: cells of its
-// colour (index sum parity) get the update
-//   p + weight/(alpha + beta*w0) * (rhs - alpha*p - beta*lap),
-// the others are copied.  The wrapper ping-pongs between two buffers, so
-// every read of a half sweep sees the array as it was before that half
-// sweep: a 3^nd stencil couples a cell to diagonal neighbours of its own
-// colour, and on a periodic extent of 3 a cell wraps onto its own colour.
+// K7 has two variants (csrc/rb_sweep.cuh), chosen per plan by
+// ops/rb_sweeps.py: on a level whose p ping-pong pair fits one block's
+// shared memory, one launch runs every half sweep of the call there (a
+// cluster of up to 8 blocks shares the level through distributed shared
+// memory; the weights stay in device memory); on larger levels
+// one launch does a full red+black sweep on shared-memory tiles of p
+// (2-cell halos, red on the tile and a ring, black on the tile) and reads
+// each weight plane about once.  A cell updates to
+//   p + weight/(alpha + beta*w0) * (rhs - alpha*p - beta*lap)
+// from the array as it was before its half sweep: a 3^nd stencil couples a
+// cell to diagonal neighbours of its own colour, and on a periodic extent
+// of 3 a cell wraps onto its own colour.  K8 is one thread per cell
+// (grid-stride loop), no shared memory; neighbour re-reads hit L1/L2.
 //
 // Build with -fmad=false: every multiply and add is rounded separately, as
 // the plain PyTorch versions compute them.
 //
 // C ABI: every entry point takes the CUDA stream as its last argument and
-// returns cudaGetLastError() right after the launch.
+// returns cudaGetLastError() right after its last launch.
 
 #include <cuda_runtime.h>
+
+#include "rb_sweep.cuh"
 
 namespace {
 
@@ -129,26 +135,79 @@ __device__ __forceinline__ T lap_at(const T* __restrict__ p,
 }
 
 // ---------------------------------------------------------------- K7
-template <typename T, int ND>
-__global__ void __launch_bounds__(kBlock)
-stencil_gsrb_half_kernel(const T* __restrict__ p, const T* __restrict__ rhs,
-                         const T* __restrict__ w, const T* __restrict__ r,
-                         const T* __restrict__ w0, T* __restrict__ out,
-                         Stencil s, T alpha, T beta, T weight, int colour) {
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < s.total;
-       idx += gridDim.x * blockDim.x) {
-    int i[3];
-    cell_index<ND>(idx, s.n, i);
-    const T pc = p[idx];
-    if (((i[0] + i[1] + i[2]) & 1) != colour) {
-      out[idx] = pc;
-      continue;
+// The smoother as an rb::Op: the arithmetic of lap_at, with the neighbours
+// taken from shared memory.  The loop over the offsets is unrolled (at most
+// 8 in 2D, 26 in 3D), so a cell's weight loads are issued together: in 2D
+// by fetch(), with rhs, R and w0; in 3D inside apply(), where the compiler
+// schedules the 18-26 loads within its register budget.
+template <typename T_, int ND_>
+struct StencilOp {
+  typedef T_ T;
+  static constexpr int ND = ND_;
+  static constexpr int kMaxOffsets = ND == 2 ? 8 : kMaxK;
+  static constexpr int kFetched = ND == 2 ? kMaxOffsets : 1;
+  struct Operands {
+    T rhs, r, w0;
+    T w[kFetched];
+    int gidx;
+  };
+  int n[3];
+  int K;
+  int total;
+  signed char off[kMaxK][3];
+  const T* rhs;
+  const T* w;
+  const T* r;
+  const T* w0;
+  T alpha, beta, weight;
+
+  __device__ bool wraps(int) const { return true; }
+
+  __device__ __forceinline__ Operands fetch(int gidx) const {
+    Operands o;
+    o.gidx = gidx;
+    o.rhs = __ldg(rhs + gidx);
+    o.r = __ldg(r + gidx);
+    o.w0 = __ldg(w0 + gidx);
+    if (ND == 2) {
+#pragma unroll
+      for (int k = 0; k < kFetched; ++k)
+        if (k < K) o.w[k] = __ldg(w + (i64)k * total + gidx);
     }
-    const T lap = lap_at<T, ND>(p, w, r, s, idx, i, pc);
-    const T res = rhs[idx] - alpha * pc - beta * lap;
-    const T inv_den = weight / (alpha + beta * w0[idx]);
-    out[idx] = pc + inv_den * res;
+    return o;
   }
+
+  template <class Nb>
+  __device__ __forceinline__ T apply(const Operands& o, const int*, T pc,
+                                     Nb nb) const {
+    T lap = o.r * pc;
+#pragma unroll
+    for (int k = 0; k < kMaxOffsets; ++k) {
+      if (k < K) {
+        const T wk = ND == 2 ? o.w[k < kFetched ? k : 0]
+                             : __ldg(w + (i64)k * total + o.gidx);
+        const T pn = nb(off[k][0], off[k][1], off[k][2]);
+        lap = lap + wk * (pn - pc);
+      }
+    }
+    const T res = o.rhs - alpha * pc - beta * lap;
+    const T inv_den = weight / (alpha + beta * o.w0);
+    return pc + inv_den * res;
+  }
+};
+
+template <typename T, int ND>
+__global__ void __launch_bounds__(rb::kWholeThreads)
+stencil_gsrb_whole_kernel(const T* __restrict__ p, T* __restrict__ out,
+                          StencilOp<T, ND> op, int iters, int slice) {
+  rb::whole_body(op, p, out, iters, slice);
+}
+
+template <typename T, int ND>
+__global__ void __launch_bounds__(rb::kTileThreads, sizeof(T) == 4 ? 4 : 2)
+stencil_gsrb_tiled_kernel(const T* __restrict__ p, T* __restrict__ out,
+                          StencilOp<T, ND> op, int tz) {
+  rb::tiled_body(op, p, out, tz);
 }
 
 // ---------------------------------------------------------------- K8
@@ -169,25 +228,77 @@ stencil_helm_residual_kernel(const T* __restrict__ p,
   }
 }
 
+// variant 0: one whole-level launch p -> out0; variant 1: `iters` tiled
+// sweeps p -> out0 -> out1 -> out0 ... (chunks of tz planes along axis 0)
+template <typename T, int ND>
+int launch_gsrb_sweeps(const T* p, const T* rhs, const T* w, const T* r,
+                       const T* w0, T* out0, T* out1, const Stencil& s,
+                       double alpha, double beta, double weight, int iters,
+                       int variant, int tz, cudaStream_t stream) {
+  StencilOp<T, ND> op;
+  for (int a = 0; a < 3; ++a) op.n[a] = s.n[a];
+  op.K = s.K;
+  op.total = s.total;
+  for (int k = 0; k < s.K; ++k)
+    for (int a = 0; a < 3; ++a) op.off[k][a] = s.off[k][a];
+  op.rhs = rhs;
+  op.w = w;
+  op.r = r;
+  op.w0 = w0;
+  op.alpha = (T)alpha;
+  op.beta = (T)beta;
+  op.weight = (T)weight;
+  if (variant == 0) {
+    static size_t set = 0;
+    const rb::WholeShape w = rb::whole_shape(s.total);
+    const size_t smem = 2 * (size_t)w.slice * sizeof(T);
+    cudaError_t e =
+        rb::allow_smem(stencil_gsrb_whole_kernel<T, ND>, smem, &set);
+    if (e == cudaSuccess)
+      e = rb::launch_whole(stencil_gsrb_whole_kernel<T, ND>, w, smem, stream,
+                           p, out0, op, iters, w.slice);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
+  if (tz < 1) return (int)cudaErrorInvalidValue;
+  static size_t set = 0;
+  const size_t smem = rb::tiled_smem_cells<ND>() * sizeof(T);
+  const cudaError_t e =
+      rb::allow_smem(stencil_gsrb_tiled_kernel<T, ND>, smem, &set);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((s.n[2] + rb::Tile<ND>::X - 1) / rb::Tile<ND>::X,
+                  (s.n[1] + rb::Tile<ND>::Y - 1) / rb::Tile<ND>::Y,
+                  (s.n[0] + tz - 1) / tz);
+  const T* src = p;
+  for (int k = 0; k < iters; ++k) {
+    T* dst = (k & 1) ? out1 : out0;
+    stencil_gsrb_tiled_kernel<T, ND>
+        <<<grid, rb::kTileThreads, smem, stream>>>(src, dst, op, tz);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    src = dst;
+  }
+  return 0;
+}
+
 template <typename T>
-int launch_gsrb_half(const void* p, const void* rhs, const void* w,
-                     const void* r, const void* w0, void* out, int ndim,
-                     const int* n, int K, const int* offs, double alpha,
-                     double beta, double weight, int colour, void* stream) {
-  if (K < 0 || K > kMaxK || (ndim != 2 && ndim != 3))
+int gsrb_sweeps(const void* p, const void* rhs, const void* w, const void* r,
+                const void* w0, void* out0, void* out1, int ndim,
+                const int* n, int K, const int* offs, int variant, int tz,
+                double alpha, double beta, double weight, int iters,
+                void* stream) {
+  if (K < 0 || K > (ndim == 2 ? 8 : kMaxK) || (ndim != 2 && ndim != 3) ||
+      (variant != 0 && variant != 1))
     return (int)cudaErrorInvalidValue;
   const Stencil s = make_stencil(n, K, offs);
-  const int blocks = grid_for(s.total);
-  cudaStream_t st = (cudaStream_t)stream;
   if (ndim == 3)
-    stencil_gsrb_half_kernel<T, 3><<<blocks, kBlock, 0, st>>>(
+    return launch_gsrb_sweeps<T, 3>(
         (const T*)p, (const T*)rhs, (const T*)w, (const T*)r, (const T*)w0,
-        (T*)out, s, (T)alpha, (T)beta, (T)weight, colour);
-  else
-    stencil_gsrb_half_kernel<T, 2><<<blocks, kBlock, 0, st>>>(
-        (const T*)p, (const T*)rhs, (const T*)w, (const T*)r, (const T*)w0,
-        (T*)out, s, (T)alpha, (T)beta, (T)weight, colour);
-  return (int)cudaGetLastError();
+        (T*)out0, (T*)out1, s, alpha, beta, weight, iters, variant, tz,
+        (cudaStream_t)stream);
+  return launch_gsrb_sweeps<T, 2>(
+      (const T*)p, (const T*)rhs, (const T*)w, (const T*)r, (const T*)w0,
+      (T*)out0, (T*)out1, s, alpha, beta, weight, iters, variant, tz,
+      (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -215,22 +326,24 @@ int launch_helm_residual(const void* p, const void* rhs, const void* w,
 
 extern "C" {
 
-int stencil_gsrb_half_f32(const void* p, const void* rhs, const void* w,
-                          const void* r, const void* w0, void* out, int ndim,
-                          const int* n, int K, const int* offs, double alpha,
-                          double beta, double weight, int colour,
-                          void* stream) {
-  return launch_gsrb_half<float>(p, rhs, w, r, w0, out, ndim, n, K, offs,
-                                 alpha, beta, weight, colour, stream);
+int stencil_gsrb_sweeps_f32(const void* p, const void* rhs, const void* w,
+                            const void* r, const void* w0, void* out0,
+                            void* out1, int ndim, const int* n, int K,
+                            const int* offs, int variant, int tz,
+                            double alpha, double beta, double weight,
+                            int iters, void* stream) {
+  return gsrb_sweeps<float>(p, rhs, w, r, w0, out0, out1, ndim, n, K, offs,
+                            variant, tz, alpha, beta, weight, iters, stream);
 }
 
-int stencil_gsrb_half_f64(const void* p, const void* rhs, const void* w,
-                          const void* r, const void* w0, void* out, int ndim,
-                          const int* n, int K, const int* offs, double alpha,
-                          double beta, double weight, int colour,
-                          void* stream) {
-  return launch_gsrb_half<double>(p, rhs, w, r, w0, out, ndim, n, K, offs,
-                                  alpha, beta, weight, colour, stream);
+int stencil_gsrb_sweeps_f64(const void* p, const void* rhs, const void* w,
+                            const void* r, const void* w0, void* out0,
+                            void* out1, int ndim, const int* n, int K,
+                            const int* offs, int variant, int tz,
+                            double alpha, double beta, double weight,
+                            int iters, void* stream) {
+  return gsrb_sweeps<double>(p, rhs, w, r, w0, out0, out1, ndim, n, K, offs,
+                             variant, tz, alpha, beta, weight, iters, stream);
 }
 
 int stencil_helm_residual_f32(const void* p, const void* rhs, const void* w,

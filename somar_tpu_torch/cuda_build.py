@@ -2,9 +2,10 @@
 
 Each library (`somar_ctu`: the CTU kernels K1-K4; `somar_gsrb`: the GSRB
 kernels K5-K6; `somar_stencil`: the probed-stencil kernels K7-K8) is
-compiled with `nvcc` from the package's `csrc/` sources
-into a shared object with a plain C interface and loaded with ctypes.  The
-build is keyed by a hash of the sources and the flags and cached under
+compiled with `nvcc` from the package's `csrc/` sources into a shared
+object with a plain C interface and loaded with ctypes.  The build is
+keyed by a hash of the sources, the headers there and the flags and
+cached under
 `build/somar_tpu_torch/` at the repository root (git-ignored), so the first
 use in a fresh checkout compiles and later uses load.  Nothing is built at
 import time.
@@ -46,8 +47,10 @@ def find_nvcc() -> str:
 
 
 def _digest(sources: Sequence[Path]) -> str:
+    """Hash of the flags, the sources and every header under csrc/ (the
+    sources include them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

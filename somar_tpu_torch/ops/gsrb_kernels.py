@@ -27,13 +27,19 @@ FIRST: the gathered form sum(W*p) + diag*p cancels O(coef*|phi|) terms and
 its f32 roundoff floor stalls multigrid on anisotropic grids.
 
 What bounds the kernels on the card: device-memory bandwidth (K6 reads two
-arrays and writes one; a half sweep does the same), a dozen flops per
-cell.  Design of this first version: one thread per cell, no shared-memory
-tiling; K5 is one launch per half sweep (red, then black), ping-ponging
-between two buffers so that every read of a half sweep sees the array as it
-was before that half sweep.  That holds on every shape, including periodic
-axes of odd extent or of extent 2, where a cell's wrap neighbour has its own
-colour.  Compiled with -fmad=false so that kernel and twin round alike.
+arrays and writes one; a sweep must do the same), a dozen flops per cell
+and half sweep.  K5 has two variants, chosen once per plan and dtype by
+`rb_sweeps.choose_variant` from the level's shape: on levels whose p
+ping-pong pair fits one block's shared memory (up to (16,16,64) in f32),
+one launch runs every half sweep of the call in shared memory (a cluster
+of up to 8 blocks); on larger levels one launch does a full red+black
+sweep on shared-memory tiles (red on the tile and a 1-cell ring from
+2-cell halos, black on the tile), and consecutive sweeps ping-pong between
+two device buffers.  Every read of a
+half sweep sees the array as it was before that half sweep, on every
+shape, including periodic axes of odd extent or of extent 2, where a
+cell's wrap neighbour has its own colour.  K6 is one thread per cell.
+Compiled with -fmad=false so that kernel and twin round alike.
 
 Dispatch is by the tensor's device: a CPU tensor goes to the `*_plain`
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
@@ -52,6 +58,7 @@ import torch
 from somar_tpu_torch import cuda_build
 from somar_tpu_torch.core.bc import BCType, FieldBCs
 from somar_tpu_torch.core.grid import Grid
+from somar_tpu_torch.ops import rb_sweeps
 
 #: (library name, sources under csrc/) for cuda_build
 LIBRARY = ("somar_gsrb", ("gsrb_kernels.cu",))
@@ -102,6 +109,7 @@ class FusedPlan:
         self.ndim = nd
         self.ok = True
         self._kernel_args = None    # the ctypes form, built at first launch
+        self._sweeps = {}           # (dtype, variant) -> K5 launch set-up
 
 
 def make_plan(grid: Grid, bcs: FieldBCs, geo=None) -> Optional[FusedPlan]:
@@ -213,9 +221,9 @@ def load():
     ip, dp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double)
     plan_args = [ctypes.c_int, ip, ip, dp, dp, dp]
     for suf in _SUFFIX.values():
-        fn = getattr(lib, f"gsrb_half_{suf}")
-        fn.argtypes = [_VP] * 3 + plan_args + [ctypes.c_double] * 3 \
-            + [ctypes.c_int, _VP]
+        fn = getattr(lib, f"gsrb_sweeps_{suf}")
+        fn.argtypes = [_VP] * 4 + plan_args + [ctypes.c_int] * 2 \
+            + [ctypes.c_double] * 3 + [ctypes.c_int, _VP]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"helm_residual_{suf}")
         fn.argtypes = [_VP] * 3 + plan_args + [ctypes.c_double] * 2 + [_VP]
@@ -263,10 +271,6 @@ def _prepare(plan: FusedPlan, phi, rhs):
     return phi.contiguous(), rhs.contiguous()
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: error {rc} "
@@ -277,32 +281,33 @@ def _check(rc: int, name: str):
 # wrappers
 # --------------------------------------------------------------------------
 def gsrb_sweeps(plan: FusedPlan, phi, rhs, alpha, beta, iters: int,
-                weight: float = 1.0):
+                weight: float = 1.0, variant: Optional[str] = None):
     """K5 — `iters` full red-black sweeps of the uniform-metric Helmholtz
     smoother on homogeneous BCs:
         p += weight/(alpha + beta*diag) * (rhs - alpha*p - beta*lap(p))
     on the cells whose index sum is even, then on the odd ones with the
     even ones updated.  alpha, beta are Python floats, rounded to the
-    arrays' dtype.  Returns a new tensor; phi is left alone."""
+    arrays' dtype.  On the card one launch runs the whole call ("whole")
+    or one launch runs each sweep ("tiled"), as `rb_sweeps.choose_variant`
+    picks for the plan; `variant` forces one.  Returns a new tensor; phi is
+    left alone."""
     if _on_cpu(phi):
         return gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, iters, weight)
     phi, rhs = _prepare(plan, phi, rhs)
     if iters <= 0:
         return phi.clone()
-    fn = getattr(load(), f"gsrb_half_{_SUFFIX[phi.dtype]}")
-    pargs = _plan_args(plan)
-    bufs = (torch.empty_like(phi), torch.empty_like(phi))
-    src = phi
-    for _ in range(iters):
-        for colour in (0, 1):
-            dst = bufs[colour]
-            rc = fn(src.data_ptr(), rhs.data_ptr(), dst.data_ptr(), *pargs,
-                    float(alpha), float(beta), float(weight), colour,
-                    _stream(phi))
-            _check(rc, "gsrb_sweeps")
-            gsrb_sweeps.launches += 1
-            src = dst
-    return src
+    name = f"gsrb_sweeps_{_SUFFIX[phi.dtype]}"
+    fn, pargs, var = rb_sweeps.setup(
+        plan, phi, variant, lambda: (getattr(load(), name), _plan_args(plan)))
+    outs = [torch.empty_like(phi)]
+    if var == rb_sweeps.TILED and iters > 1:
+        outs.append(torch.empty_like(phi))
+    rc = fn(phi.data_ptr(), rhs.data_ptr(), outs[0].data_ptr(),
+            outs[-1].data_ptr(), *pargs, float(alpha), float(beta),
+            float(weight), iters, rb_sweeps.raw_stream(phi))
+    _check(rc, "gsrb_sweeps")
+    gsrb_sweeps.launches += rb_sweeps.launches_per_call(var, iters)
+    return outs[(iters - 1) % len(outs)]
 
 
 def helm_residual(plan: FusedPlan, phi, rhs, alpha, beta):
@@ -313,7 +318,7 @@ def helm_residual(plan: FusedPlan, phi, rhs, alpha, beta):
     out = torch.empty_like(phi)
     rc = getattr(load(), f"helm_residual_{_SUFFIX[phi.dtype]}")(
         phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), *_plan_args(plan),
-        float(alpha), float(beta), _stream(phi))
+        float(alpha), float(beta), rb_sweeps.raw_stream(phi))
     _check(rc, "helm_residual")
     helm_residual.launches += 1
     return out

@@ -37,18 +37,23 @@ red-black smoother.  Wn, R and w0 can be overridden per call: the altered
 metric of implicit gravity enters the operator linearly, and its solves
 pass plan.Wn + dWn etc. (`delta_stencil_weights`, once per solve).
 
-What bounds the kernels on the card: device-memory bandwidth.  A half sweep
-reads phi, rhs, K weight planes, R and w0 and writes phi: K+5 arrays (K = 8
+What bounds the kernels on the card: device-memory bandwidth.  A sweep must
+read phi, rhs, K weight planes, R and w0 and write phi: K+5 arrays (K = 8
 in 2D with a non-diagonal metric; at most 18 in 3D, since the cross terms
 couple two axes at a time and the 8 corner offsets probe to 0), about 3K
-flops per cell.
-Design of this first version: one thread per cell, no shared memory; K7 is
-one launch per half sweep (red, then black) ping-ponging between two
-buffers, so that every read of a half sweep sees the array as it was before
-it.  With a 3^nd stencil a cell's diagonal neighbours share its colour, and
-on a periodic extent of 3 a cell wraps onto its own colour: the whole
-colour must be updated from the old array, as the Pallas kernel does.
-Compiled with -fmad=false so that kernel and twin round alike.
+flops per cell.  K7 has two variants, chosen once per plan and dtype by
+`rb_sweeps.choose_variant`: on levels whose phi ping-pong pair fits one
+block's shared memory (up to (32,320) on the BeamGeneration path), one
+launch runs every half sweep of the call in shared memory (a cluster of
+up to 8 blocks); on larger levels one launch does a full red+black sweep
+on shared-memory tiles (red on the tile and a 1-cell ring from 2-cell
+halos, black on the tile) and reads each weight plane about once, and
+consecutive sweeps ping-pong between two device buffers.  With a 3^nd
+stencil a cell's diagonal neighbours share its colour, and on a periodic
+extent of 3 a cell wraps onto its own colour: each half sweep updates its
+colour from the array as it was before it, in shared memory too, as the
+Pallas kernel does.  K8 is one thread per cell.  Compiled with
+-fmad=false so that kernel and twin round alike.
 
 Dispatch is by the tensor's device: a CPU tensor goes to the `*_plain`
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
@@ -67,6 +72,7 @@ import numpy as np
 import torch
 
 from somar_tpu_torch import cuda_build
+from somar_tpu_torch.ops import rb_sweeps
 
 #: (library name, sources under csrc/) for cuda_build
 LIBRARY = ("somar_stencil", ("stencil_gsrb_kernels.cu",))
@@ -170,6 +176,7 @@ class StencilPlan:
         self.ndim = len(shape)
         self.K = len(self.offsets)
         self._kernel_args = None    # the ctypes form, built at first launch
+        self._sweeps = {}           # (dtype, variant) -> K7 launch set-up
 
 
 def build_stencil_plan(op) -> Optional[StencilPlan]:
@@ -333,9 +340,9 @@ def load():
     ip = ctypes.POINTER(ctypes.c_int)
     plan_args = [ctypes.c_int, ip, ctypes.c_int, ip]
     for suf in _SUFFIX.values():
-        fn = getattr(lib, f"stencil_gsrb_half_{suf}")
-        fn.argtypes = [_VP] * 6 + plan_args + [ctypes.c_double] * 3 \
-            + [ctypes.c_int, _VP]
+        fn = getattr(lib, f"stencil_gsrb_sweeps_{suf}")
+        fn.argtypes = [_VP] * 7 + plan_args + [ctypes.c_int] * 2 \
+            + [ctypes.c_double] * 3 + [ctypes.c_int, _VP]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"stencil_helm_residual_{suf}")
         fn.argtypes = [_VP] * 5 + plan_args + [ctypes.c_double] * 2 + [_VP]
@@ -383,10 +390,6 @@ def _prepare(plan, phi, rhs, *weights):
     return [t.contiguous() for t in (phi, rhs) + weights]
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_rc(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: error {rc} "
@@ -398,14 +401,17 @@ def _check_rc(rc: int, name: str):
 # --------------------------------------------------------------------------
 def stencil_gsrb_sweeps(plan: StencilPlan, phi, rhs, alpha, beta,
                         iters: int, weight: float = 1.0, Wn=None, R=None,
-                        w0=None):
+                        w0=None, variant: Optional[str] = None):
     """K7 — `iters` full red-black sweeps of the probed-stencil Helmholtz
     smoother:
         p += weight/(alpha + beta*w0) * (rhs - alpha*p - beta*lap(p))
     on the cells whose index sum is even, then on the odd ones with the
     even ones updated.  Wn/R/w0 override the plan's weights, row sum and
     smoother diagonal.  alpha, beta are Python floats, rounded to the
-    arrays' dtype.  Returns a new tensor; phi is left alone."""
+    arrays' dtype.  On the card one launch runs the whole call ("whole")
+    or one launch runs each sweep ("tiled"), as `rb_sweeps.choose_variant`
+    picks for the plan; `variant` forces one.  Returns a new tensor; phi is
+    left alone."""
     if _on_cpu(phi):
         return stencil_gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, iters,
                                          weight, Wn, R, w0)
@@ -414,21 +420,19 @@ def stencil_gsrb_sweeps(plan: StencilPlan, phi, rhs, alpha, beta,
     phi, rhs, Wn, R, w0 = _prepare(plan, phi, rhs, Wn, R, w0)
     if iters <= 0:
         return phi.clone()
-    fn = getattr(load(), f"stencil_gsrb_half_{_SUFFIX[phi.dtype]}")
-    pargs = _plan_args(plan)
-    bufs = (torch.empty_like(phi), torch.empty_like(phi))
-    src = phi
-    for _ in range(iters):
-        for colour in (0, 1):
-            dst = bufs[colour]
-            rc = fn(src.data_ptr(), rhs.data_ptr(), Wn.data_ptr(),
-                    R.data_ptr(), w0.data_ptr(), dst.data_ptr(), *pargs,
-                    float(alpha), float(beta), float(weight), colour,
-                    _stream(phi))
-            _check_rc(rc, "stencil_gsrb_sweeps")
-            stencil_gsrb_sweeps.launches += 1
-            src = dst
-    return src
+    name = f"stencil_gsrb_sweeps_{_SUFFIX[phi.dtype]}"
+    fn, pargs, var = rb_sweeps.setup(
+        plan, phi, variant, lambda: (getattr(load(), name), _plan_args(plan)))
+    outs = [torch.empty_like(phi)]
+    if var == rb_sweeps.TILED and iters > 1:
+        outs.append(torch.empty_like(phi))
+    rc = fn(phi.data_ptr(), rhs.data_ptr(), Wn.data_ptr(), R.data_ptr(),
+            w0.data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(), *pargs,
+            float(alpha), float(beta), float(weight), iters,
+            rb_sweeps.raw_stream(phi))
+    _check_rc(rc, "stencil_gsrb_sweeps")
+    stencil_gsrb_sweeps.launches += rb_sweeps.launches_per_call(var, iters)
+    return outs[(iters - 1) % len(outs)]
 
 
 def stencil_helm_residual(plan: StencilPlan, phi, rhs, alpha, beta,
@@ -444,7 +448,7 @@ def stencil_helm_residual(plan: StencilPlan, phi, rhs, alpha, beta,
     rc = getattr(load(), f"stencil_helm_residual_{_SUFFIX[phi.dtype]}")(
         phi.data_ptr(), rhs.data_ptr(), Wn.data_ptr(), R.data_ptr(),
         out.data_ptr(), *_plan_args(plan), float(alpha), float(beta),
-        _stream(phi))
+        rb_sweeps.raw_stream(phi))
     _check_rc(rc, "stencil_helm_residual")
     stencil_helm_residual.launches += 1
     return out

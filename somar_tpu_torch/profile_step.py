@@ -42,10 +42,13 @@ WARMUP_STEPS = 10
 GROUPS = (
     ("CTU kernels K1-K4", ("ppm_predict_kernel", "ctu_corr3_kernel",
                            "ctu_final_kernel", "riemann_fluxdiv_kernel")),
-    # before K5-K6: their kernel names are substrings of these
-    ("stencil kernels K7-K8", ("stencil_gsrb_half_kernel",
+    # before K5-K6: K6's name is a substring of K8's
+    ("stencil kernels K7-K8", ("stencil_gsrb_whole_kernel",
+                               "stencil_gsrb_tiled_kernel",
                                "stencil_helm_residual_kernel")),
-    ("GSRB kernels K5-K6", ("gsrb_half_kernel", "helm_residual_kernel")),
+    ("GSRB kernels K5-K6", ("uniform_gsrb_whole_kernel",
+                            "uniform_gsrb_tiled_kernel",
+                            "helm_residual_kernel")),
     ("matmul (spectral solves)", ("gemm", "gemv")),
     ("cat (ghost fills, shifts)", ("catarray",)),
     ("reductions", ("reduce",)),

@@ -10,8 +10,11 @@ On the CPU each wrapper runs its plain PyTorch twin.  The twins are held
   * on shapes the TPU gate refused and the port accepts (a periodic
     vertical axis in 3D; periodic extents 2 and 3, where a cell's wrap
     neighbour has the cell's own colour) against the jnp path alone.
+The variant chooser of K5 (one launch per smoothing call on levels whose
+ping-pong pair fits one block's shared memory, one per sweep above) is
+checked on the multigrid levels of the lock exchange without JAX.
 The CUDA kernels are held against the twins on the card by the tests marked
-`cuda`, which skip without one.  On a GPU host without JAX they run with
+`cuda`, which skip without one: bitwise, in each variant.  On a GPU host without JAX they run with
 
     python -m pytest tests/test_torch_gsrb_kernels.py -m cuda --noconftest
 """
@@ -28,6 +31,8 @@ from somar_tpu_torch.core.grid import Grid as TGrid
 from somar_tpu_torch.geometry.geo_source import CartesianMap as TCartesian
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry as tgeo
 from somar_tpu_torch.ops import gsrb_kernels as gk
+from somar_tpu_torch.ops import rb_sweeps
+from somar_tpu_torch.solvers.multigrid import semicoarsening_schedule
 from somar_tpu_torch.solvers.poisson_op import PoissonOp as TOp
 
 try:    # the JAX reference; a GPU host may have no JAX (the cuda tests run)
@@ -280,6 +285,80 @@ def test_launch_counts_count_only_kernel_launches():
 
 
 # --------------------------------------------------------------------------
+# K5's launch shape per level (no JAX)
+# --------------------------------------------------------------------------
+def _mg_levels(nx, dx, periodic):
+    grid = TGrid(nx=nx, dx=dx, periodic=periodic)
+    shapes = [grid.shape]
+    for ratio in semicoarsening_schedule(grid):
+        grid = grid.coarsen(ratio)
+        shapes.append(grid.shape)
+    return shapes
+
+
+#: the multigrid levels of main path 2 (the 512x128x128 lock exchange)
+PATH2_LEVELS = [(128, 128, 512), (64, 64, 256), (32, 32, 128), (16, 16, 64),
+                (8, 8, 32), (4, 4, 16), (2, 2, 8), (2, 2, 4), (2, 2, 2)]
+#: their shapes with the pressure BCs, for the card (array axes reversed);
+#: the finest two are left to chip_smoke.py
+MG_LEVELS = {f"path2-{s}": (s[::-1], (False, True, False), (N, P, N),
+                            (N, P, N)) for s in PATH2_LEVELS[2:]}
+#: for the card: a periodic extent of 5 and extents that are not multiples
+#: of a tile (2D 32x32; 3D 16x64 with chunks along axis 0)
+AWKWARD = {
+    "periodic-5-ragged": ((19, 5, 70), (True, True, False), (P, P, D),
+                          (P, P, N)),
+    "ragged-3d": ((65, 33, 18), (False, False, False), (D, C, N),
+                  (N, C, E0)),
+    "2d-ragged": ((70, 37), (True, False), (P, D), (P, N)),
+    "2d-periodic-5": ((5, 33), (True, True), (P, P), (P, P)),
+}
+
+
+def test_path2_levels_are_the_schedule():
+    assert _mg_levels((512, 128, 128), (15 / 512, 2 / 128, 2 / 128),
+                      (False, True, False)) == PATH2_LEVELS
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", PATH2_LEVELS, ids=str)
+def test_variant_chooser_on_path2_levels(shape, f64):
+    """One launch per smoothing call up to (16,16,64) in f32, where the
+    ping-pong pair takes 128 KB of shared memory; one per sweep above, and
+    at (16,16,64) in f64 (256 KB)."""
+    item = 8 if f64 else 4
+    var, tz = rb_sweeps.choose_variant(shape, item)
+    cells = int(np.prod(shape))
+    want_whole = cells <= 16 * 16 * 64 and not (f64 and cells == 16384)
+    assert var == (rb_sweeps.WHOLE if want_whole else rb_sweeps.TILED)
+    if var == rb_sweeps.WHOLE:
+        assert 2 * cells * item <= rb_sweeps.WHOLE_BYTES and tz == 0
+    else:
+        assert 1 <= tz <= shape[0]
+        assert rb_sweeps.tiled_smem_bytes(3, item) \
+            <= rb_sweeps.SMEM_PER_BLOCK
+    for iters in (1, 2, 4):
+        assert rb_sweeps.launches_per_call(var, iters) == \
+            (1 if want_whole else iters)
+
+
+def test_forced_variants_and_chooser_limits():
+    assert rb_sweeps.check_forced("tiled", (2, 2, 2), 4) == ("tiled", 2)
+    assert rb_sweeps.check_forced("whole", (16, 16, 64), 4) == ("whole", 0)
+    for shape, item in (((16, 16, 64), 8), ((32, 32, 128), 4)):
+        with pytest.raises(ValueError):     # above one block's 227 KB
+            rb_sweeps.check_forced("whole", shape, item)
+    with pytest.raises(ValueError):
+        rb_sweeps.check_forced("half", (2, 2, 2), 4)
+    with pytest.raises(ValueError):
+        rb_sweeps.choose_variant((8,), 4)
+    # a smaller shared memory moves a level to the tiled variant
+    assert rb_sweeps.choose_variant((16, 16, 64), 4, smem_per_block=65536) \
+        == ("tiled", 4)
+    assert rb_sweeps.launches_per_call("whole", 0) == 0
+
+
+# --------------------------------------------------------------------------
 # on the card: the CUDA kernels against their twins on the same tensors
 # --------------------------------------------------------------------------
 @pytest.fixture
@@ -287,6 +366,16 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     return torch.device("cuda")
+
+
+def _variants(shape, dtype):
+    """The K5 variants that fit the level: the plan's own choice, then each
+    one forced."""
+    item = torch.empty((), dtype=dtype).element_size()
+    forced = [v for v in (rb_sweeps.WHOLE, rb_sweeps.TILED)
+              if v == rb_sweeps.TILED
+              or 2 * np.prod(shape) * item <= rb_sweeps.SMEM_PER_BLOCK]
+    return [None] + forced
 
 
 def _cuda_compare(case, dtype, device):
@@ -298,11 +387,13 @@ def _cuda_compare(case, dtype, device):
     scale = max(float(phi.abs().max()), float(rhs.abs().max()))
     for alpha, beta in COEFS + [(1.0, -1e-3)]:
         for iters in (1, 3):
-            got = gk.gsrb_sweeps(plan, phi, rhs, alpha, beta, iters)
             want = gk.gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, iters)
-            assert got.device.type == "cuda" and got.dtype == dtype
-            lim = 1e-6 * max(scale, float(want.abs().max()))
-            assert float((got - want).abs().max()) <= lim, (case, iters)
+            for variant in _variants(grid.shape, dtype):
+                got = gk.gsrb_sweeps(plan, phi, rhs, alpha, beta, iters,
+                                     variant=variant)
+                assert got.device.type == "cuda" and got.dtype == dtype
+                assert float((got - want).abs().max()) == 0.0, \
+                    (case, iters, variant)
         got = gk.helm_residual(plan, phi, rhs, alpha, beta)
         want = gk.helm_residual_plain(plan, phi, rhs, alpha, beta)
         lim = 1e-6 * max(scale, float(want.abs().max()))
@@ -312,9 +403,11 @@ def _cuda_compare(case, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_match_twins(cuda_device, dtype):
-    """Full arrays, |kernel - twin| <= 1e-6 max(|input|, |result|) (the
-    kernels are built with -fmad=false and round as the twins do)."""
-    for case in list(CASES.values()) + list(EXTRA.values()):
+    """Full arrays: K5 bitwise equal to its twin in each variant (the
+    kernels are built with -fmad=false and round as the twins do), K6
+    within 1e-6 max(|input|, |result|)."""
+    for case in list(CASES.values()) + list(EXTRA.values()) \
+            + list(MG_LEVELS.values()) + list(AWKWARD.values()):
         _cuda_compare(case, dtype, cuda_device)
 
 
@@ -324,6 +417,7 @@ def test_cuda_launch_counts(cuda_device):
     plan = gk.make_plan(grid, bcs, geo)
     phi = torch.zeros(grid.shape, device=cuda_device)
     gk.reset_launch_counts()
-    gk.gsrb_sweeps(plan, phi, phi, 0.0, 1.0, 3)
+    gk.gsrb_sweeps(plan, phi, phi, 0.0, 1.0, 3)       # whole: one launch
+    gk.gsrb_sweeps(plan, phi, phi, 0.0, 1.0, 3, variant="tiled")
     gk.helm_residual(plan, phi, phi, 0.0, 1.0)
-    assert gk.launch_counts() == {"gsrb_sweeps": 6, "helm_residual": 1}
+    assert gk.launch_counts() == {"gsrb_sweeps": 4, "helm_residual": 1}

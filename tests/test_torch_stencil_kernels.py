@@ -13,8 +13,13 @@ extrapolation BCs; 2D and 3D) plus a periodic extent of 3 and one of 4.
     numpy), the plain twins of K7 (iters 1 and 3) and K8 equal the Pallas
     kernels (interpret=True) within 1e-6 of max|ref| in f32 and 1e-12 in
     f64, with and without the delta overrides of implicit gravity;
+  * K7's variant chooser on the multigrid levels of the 640x512
+    BeamGeneration level (no JAX);
   * the CUDA kernels against their twins (marked `cuda`, skipped without a
-    card).  On a GPU host without JAX:
+    card): K7 bitwise in each variant, on these levels and on synthetic
+    plans of awkward shapes (periodic extents 2, 3 and 5, extents that are
+    not multiples of a tile, 3D with K = 18 and 26).  On a GPU host without
+    JAX:
 
     python -m pytest tests/test_torch_stencil_kernels.py -m cuda --noconftest
 """
@@ -31,7 +36,9 @@ from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry import bathymetric as tbath
 from somar_tpu_torch.geometry import geo_source as tsrc
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+from somar_tpu_torch.ops import rb_sweeps
 from somar_tpu_torch.ops import stencil_gsrb_kernels as sgk
+from somar_tpu_torch.solvers.multigrid import semicoarsening_schedule
 from somar_tpu_torch.solvers.poisson_op import PoissonOp
 
 try:    # the JAX reference; a GPU host may have no JAX (the cuda test runs)
@@ -311,11 +318,111 @@ def test_wrappers_dispatch_on_device_and_count_nothing_on_cpu():
     assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
 
 
+#: the multigrid levels of main path 3 with a stencil plan (the three
+#: coarsest, (2,20), (2,10), (2,5), have none: an extent of 2 has no
+#: colouring)
+PATH3_PLAN_LEVELS = [(512, 640), (256, 640), (128, 640), (64, 640),
+                     (32, 320), (16, 160), (8, 80), (4, 40)]
+
+
+def test_path3_levels_are_the_schedule():
+    grid = Grid(nx=(640, 512), dx=(entry.BEAM_LENGTH / 640,
+                                   entry.BEAM_DEPTH / 512))
+    shapes = [grid.shape]
+    for ratio in semicoarsening_schedule(grid):
+        grid = grid.coarsen(ratio)
+        shapes.append(grid.shape)
+    assert shapes == PATH3_PLAN_LEVELS + [(2, 20), (2, 10), (2, 5)]
+    assert [sgk.moduli(s, (False, False)) is not None for s in shapes] \
+        == [True] * 8 + [False] * 3
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", PATH3_PLAN_LEVELS, ids=str)
+def test_variant_chooser_on_path3_levels(shape, f64):
+    """One launch per smoothing call up to (32,320) (80 KB of shared
+    memory in f32, 160 KB in f64), one per sweep from (64,640) up."""
+    item = 8 if f64 else 4
+    var, tz = rb_sweeps.choose_variant(shape, item, 8)
+    whole = shape[0] * shape[1] <= 32 * 320
+    assert (var, tz) == ((rb_sweeps.WHOLE, 0) if whole
+                         else (rb_sweeps.TILED, 1))
+    assert rb_sweeps.tiled_smem_bytes(2, item) <= rb_sweeps.SMEM_PER_BLOCK
+    assert rb_sweeps.launches_per_call(var, 4) == (1 if whole else 4)
+
+
+def _synthetic_plan(shape, periodic, K, device, dtype, seed):
+    """A StencilPlan with random weights on the first K offsets of the 3^nd
+    box (corners last): the kernels take any weights, so awkward shapes
+    that no mapped level has can be held against the twin."""
+    nd = len(shape)
+    offs = [o for o in itertools.product((-1, 0, 1), repeat=nd) if any(o)]
+    offs.sort(key=lambda o: sum(map(abs, o)) == nd)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=gen, device=device, dtype=dtype)
+    Wn = torch.rand((K,) + tuple(shape), **kw)
+    R = 0.1 * torch.randn(shape, **kw)
+    D = -Wn.sum(0) - 1.0
+    return sgk.StencilPlan(offs[:K], Wn, R, D, shape, periodic)
+
+
+#: (shape, periodic, K): periodic extents 2, 3 and 5, extents that are not
+#: multiples of a tile (2D 32x32; 3D 16x64 with chunks along axis 0)
+SYNTHETIC = [((2, 5), (True, True), 8), ((3, 7), (True, False), 8),
+             ((5, 33), (True, True), 4), ((37, 70), (False, True), 8),
+             ((64, 96), (False, False), 8),
+             ((2, 3, 5), (True, True, True), 26),
+             ((5, 17, 70), (True, False, True), 18),
+             ((18, 33, 65), (False, True, False), 18),
+             ((7, 20, 130), (True, True, True), 26)]
+
+
+def _k7_variants(shape, dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    fits = 2 * np.prod(shape) * item <= rb_sweeps.SMEM_PER_BLOCK
+    return [None, rb_sweeps.TILED] + ([rb_sweeps.WHOLE] if fits else [])
+
+
+def _k7_bitwise(plan, phi, rhs, ovs):
+    for ov, iters in itertools.product(ovs, (1, 3)):
+        want = sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, ALPHA, BETA,
+                                             iters, **ov)
+        for variant in _k7_variants(plan.shape, phi.dtype):
+            got = sgk.stencil_gsrb_sweeps(plan, phi, rhs, ALPHA, BETA, iters,
+                                          variant=variant, **ov)
+            assert float((got - want).abs().max()) == 0.0, \
+                (plan.shape, iters, variant, sorted(ov))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("shape,periodic,K", SYNTHETIC,
+                         ids=[str(c[0]) for c in SYNTHETIC])
+def test_k7_variants_on_awkward_shapes(shape, periodic, K, dtype):
+    """Both K7 variants bitwise equal to the twin, with the plan's weights
+    and with overrides, on shapes whose halos wrap onto themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = _synthetic_plan(shape, periodic, K, "cuda", dtype, 3)
+    other = _synthetic_plan(shape, periodic, K, "cuda", dtype, 4)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    phi, rhs = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                for _ in range(2))
+    _k7_bitwise(plan, phi, rhs,
+                [{}, dict(Wn=other.Wn, R=other.R, w0=other.D)])
+    sgk.reset_launch_counts()
+    sgk.stencil_gsrb_sweeps(plan, phi, rhs, ALPHA, BETA, 4,
+                            variant=rb_sweeps.TILED)
+    assert sgk.launch_counts()["stencil_gsrb_sweeps"] == 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_kernels_match_twins_on_the_card(case):
     """K7/K8 on the card against their twins on the same card tensors, with
-    and without overrides (bitwise with -fmad=false; limit 1e-6)."""
+    and without overrides: K7 bitwise in each variant (-fmad=false), K8
+    within 1e-6."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     op = _port_op(case, device="cuda")
@@ -331,11 +438,8 @@ def test_kernels_match_twins_on_the_card(case):
          tuple(torch.from_numpy(a).cuda() for a in full)))
     if got is not None:
         ovs.append(dict(zip(("Wn", "R", "w0"), got)))
-    for ov, iters in itertools.product(ovs, (1, 3)):
-        a = sgk.stencil_gsrb_sweeps(plan, phi, rhs, ALPHA, BETA, iters, **ov)
-        b = sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, ALPHA, BETA, iters,
-                                          **ov)
-        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    _k7_bitwise(plan, phi, rhs, ovs)
+    for ov in ovs:
         ov2 = {k: v for k, v in ov.items() if k != "w0"}
         a = sgk.stencil_helm_residual(plan, phi, rhs, ALPHA, BETA, **ov2)
         b = sgk.stencil_helm_residual_plain(plan, phi, rhs, ALPHA, BETA,
