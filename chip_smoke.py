@@ -11,12 +11,14 @@ non-zero:
      probed-stencil kernels K7-K8 with nvcc for sm_90a, the three libraries
      side by side;
   3. kernel parity: each kernel against its plain PyTorch twin on the same
-     card tensors, full arrays: K1-K4, K6 and K8 within 1e-6 max|input|,
-     the smoothers K5 and K7 bitwise (max abs diff 0.0) in each of their
-     variants (the plan's choice, then "whole" where the level fits one
-     block's shared memory and "tiled", each forced).  K1-K4 at the
-     512x128x128 padded shape (136, 136, 520) f32, every stencil axis and
-     mode; K5-K6 at (128, 128, 512) with the pressure BCs and with mixed
+     card tensors, full arrays: K2-K4 and K8 within 1e-6 max|input|, K1,
+     K6 and the smoothers K5 and K7 bitwise (max abs diff 0.0), K5 and K7
+     in each of their variants (the plan's choice, then "whole" where the
+     level fits one block's shared memory and "tiled", each forced).  K1
+     at the padded shapes of main paths 1 and 3, (136, 136, 520) and
+     (520, 648), and at (136, 520), every axis, limited and not, f32 and
+     f64; K2-K4 at (136, 136, 520) f32, every stencil axis and mode;
+     K5-K6 at (128, 128, 512) with the pressure BCs and with mixed
      BCs, in 2D, on periodic extents 2 and 3, and on every multigrid level
      of main path 2 in f32 and f64; K7-K8 on the seven mapped levels of
      tests/test_torch_stencil_kernels.py (2D and 3D, periodic extents 3
@@ -26,9 +28,11 @@ non-zero:
      every level of paths 2 and 3 (1 where the level takes the whole-level
      variant, 4 where it takes the tiled one);
   4. kernel timing: median time of one call of each kernel and of its twin
-     (CUDA events) and the kernel's own device time (torch.profiler), K1-K4
-     averaged over the stencil axes, K5 per sweep (one tiled launch) and K6
-     per call at (128, 128, 512) f32; K7 per sweep and K8 per call at the
+     (CUDA events) and the kernel's own device time (torch.profiler), K1
+     per stencil axis at (136, 136, 520) and (520, 648), K2-K4 averaged
+     over the stencil axes, K5 per sweep (one tiled launch) at (128, 128,
+     512), K6 per call on every multigrid level of main path 2, f32; K7
+     per sweep and K8 per call at the
      BeamGeneration level (512, 640), K = 8, and at a twisted 3D level
      (128, 256, 256), K = 18 (the most a mapped operator probes in 3D),
      f32; beside each the least time the card could take for the same
@@ -46,7 +50,9 @@ non-zero:
      (MGParams(eps=1e-5, imax=12)) through entry.run (10 steps), the same
      checks plus launches of every kernel K1-K6, the V-cycle counts and
      residuals of the first and the last step; then 3 timed samples of 5
-     steps with the kernel launches per step;
+     steps with the kernel launches per step, K6's by multigrid level, and
+     K6's launches x device time and launches x (device time - bound)
+     summed over the levels;
   8. the mapped step on the card against the CPU: one implicit-gravity
      multigrid solve (phi within 1e-4 max|phi|) and 5 steps of the 40x32
      BeamGeneration level (max|diff| / max|field| <= 1e-3);
@@ -74,6 +80,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SHAPE3 = (136, 136, 520)      # 512x128x128 plus ADVECT_GROW ghosts
 SHAPE2 = (136, 520)           # 512x128 (x, z) plus ghosts
+BEAM_PAD = (520, 648)         # main path 3's 640x512 level plus ghosts
 PARITY_RTOL = 1e-6
 STEP_RTOL = 1e-4
 MG_STEP_RTOL = 1e-3           # multigrid stops at a tolerance
@@ -89,9 +96,11 @@ CTU_SOURCE = "somar_tpu_torch/csrc/ctu_kernels.cu"
 GSRB_SOURCE = "somar_tpu_torch/csrc/gsrb_kernels.cu"
 STENCIL_SOURCE = "somar_tpu_torch/csrc/stencil_gsrb_kernels.cu"
 KERNELS = {
-    # K1 reads s, u and writes lo, hi, corr; two PPM evaluations a thread
+    # K1 reads s, u and writes lo, hi, corr; one PPM evaluation a cell
+    # (~58 flops with the limiter) and one Riemann state and correction a
+    # face (~9)
     "ppm_predict": (CTU_SOURCE, "somar_tpu/ops/pallas_kernels.py:252",
-                    5, 150),
+                    5, 70),
     # K2 with two corrections: reads lo1, hi1, u, 2 corr; writes 2
     "ctu_corr3": (CTU_SOURCE, "somar_tpu/ops/pallas_kernels.py:315", 7, 40),
     # K3 want_div: reads lo1, hi1, adv, 2 corr, src; writes 1
@@ -102,9 +111,9 @@ KERNELS = {
     # K5, one sweep: reads phi and rhs, writes phi; two half sweeps of a
     # 3-axis stencil, a diagonal and a division on half the cells each
     "gsrb_sweeps": (GSRB_SOURCE, "somar_tpu/ops/gsrb_pallas.py:368", 3, 50),
-    # K6: reads phi and rhs, writes the residual
+    # K6: reads phi and rhs, writes the residual; 5 flops an axis and 4
     "helm_residual": (GSRB_SOURCE, "somar_tpu/ops/gsrb_pallas.py:387", 3,
-                      30),
+                      20),
     # K7, one sweep at K weight planes: reads phi, rhs, Wn, R, w0, writes
     # phi; 3K + 10 flops a cell (see STENCIL_ARRAYS)
     "stencil_gsrb_sweeps": (STENCIL_SOURCE,
@@ -151,20 +160,24 @@ def kernel_cases(torch, ck, device, shape3, shape2):
     """(kernel name, label, inputs, kernel call, twin call) per case."""
     gen = torch.Generator(device=device).manual_seed(1234)
 
-    def rnd(shape):
-        return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32)
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
     cases = []
+    for shape in (shape3, shape2, BEAM_PAD):
+        for dtype in (torch.float32, torch.float64):
+            for ax in range(len(shape)):
+                s, u = rnd(shape, dtype), 0.5 * rnd(shape, dtype)
+                for lim in (True, False):
+                    args = (s, u, 0.3, ax, lim, 0.1)
+                    cases.append((
+                        "ppm_predict", f"{len(shape)}d {shape} ax{ax} "
+                        f"lim={lim} f{8 * s.element_size()}", (s, u),
+                        lambda a=args: ck.ppm_predict(*a),
+                        lambda a=args: ck.ppm_predict_plain(*a)))
     for shape in (shape3, shape2):
         nd = len(shape)
         for ax in range(nd):
-            s, u = rnd(shape), 0.5 * rnd(shape)
-            for lim in ((True, False) if nd == 3 else (True,)):
-                args = (s, u, 0.3, ax, lim, 0.1)
-                cases.append(("ppm_predict", f"{nd}d ax{ax} lim={lim}",
-                              (s, u), lambda a=args: ck.ppm_predict(*a),
-                              lambda a=args: ck.ppm_predict_plain(*a)))
             if nd == 3:
                 ins = [rnd(shape) for _ in range(5)]
                 args = (ins[0], ins[1], ins[2], ins[3:], 0.25, ax)
@@ -195,8 +208,9 @@ def kernel_cases(torch, ck, device, shape3, shape2):
 
 
 def kernel_parity(torch, ck, device, shape3=SHAPE3, shape2=SHAPE2):
-    """Returns {kernel: max abs err over its cases}; raises on a case above
-    PARITY_RTOL * max|input|."""
+    """Returns {kernel: max abs err over its cases}; raises where K1
+    differs from its twin in any bit or K2-K4 by more than PARITY_RTOL *
+    max|input|."""
     worst = {}
     for name, label, ins, kern, plain in kernel_cases(torch, ck, device,
                                                       shape3, shape2):
@@ -204,10 +218,11 @@ def kernel_parity(torch, ck, device, shape3=SHAPE3, shape2=SHAPE2):
         if device != "cpu":
             torch.cuda.synchronize()
         scale = max(float(t.abs().max()) for t in ins)
+        limit = 0.0 if name == "ppm_predict" else PARITY_RTOL * scale
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        ok = err <= PARITY_RTOL * scale and len(got) == len(want)
+        ok = err <= limit and len(got) == len(want)
         say(f"parity {name:16s} {label:18s} max_abs_err={err:.3e} "
-            f"limit={PARITY_RTOL * scale:.3e} {'ok' if ok else 'FAIL'}")
+            f"limit={limit:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise PhaseError(f"{name} {label}: kernel and twin disagree")
         worst[name] = max(worst.get(name, 0.0), err)
@@ -217,7 +232,7 @@ def kernel_parity(torch, ck, device, shape3=SHAPE3, shape2=SHAPE2):
 def median_ms(torch, fn, reps=50):
     """Median time of one call of fn over `reps` calls after 0.2 s of
     back-to-back calls (CUDA events)."""
-    from somar_tpu_torch.smoother_bench import warm
+    from somar_tpu_torch.kernel_bench import warm
     warm(torch, fn)
     samples = []
     for _ in range(reps):
@@ -233,13 +248,14 @@ def median_ms(torch, fn, reps=50):
 
 def kernel_timing(torch, ck, device):
     """{kernel: (ms, plain_ms, device_ms)}: median per-launch times and the
-    kernels' own device time, averaged over the 3D stencil axes."""
+    kernels' own device time of K2-K4, averaged over the 3D stencil axes
+    (K1: k1_timing)."""
     per = {}
     for name, label, _, kern, plain in kernel_cases(torch, ck, device,
                                                     SHAPE3, SHAPE2):
-        if not label.startswith("3d") or ("lim=False" in label) \
+        if name == "ppm_predict" or not label.startswith("3d") \
                 or (name == "ctu_final" and "div" not in label):
-            continue      # the scalar-path variants: limited K1, want_div K3
+            continue      # the scalar-path variant of K3: want_div
         times = [median_ms(torch, kern), median_ms(torch, plain),
                  device_ms(torch, kern, (f"{name}_kernel",))]
         say(f"timing {name:16s} {label:18s} kernel={times[0]:.4f} ms "
@@ -247,6 +263,30 @@ def kernel_timing(torch, ck, device):
         per.setdefault(name, []).append(times)
     return {name: tuple(statistics.mean(t[i] for t in v) for i in range(3))
             for name, v in per.items()}
+
+
+def k1_timing(torch, ck, device):
+    """{(shape, ax): (ms, plain_ms, device_ms)} of K1 (limited, f32) along
+    every axis of main path 1's padded array and of main path 3's."""
+    gen = torch.Generator(device=device).manual_seed(77)
+    out = {}
+    for shape in (SHAPE3, BEAM_PAD):
+        for ax in range(len(shape)):
+            s, u = (torch.randn(shape, generator=gen, device=device)
+                    for _ in range(2))
+            args = (s, u, 0.3, ax, True, 0.1)
+            out[shape, ax] = (
+                median_ms(torch, lambda: ck.ppm_predict(*args)),
+                median_ms(torch, lambda: ck.ppm_predict_plain(*args)),
+                device_ms(torch, lambda: ck.ppm_predict(*args),
+                          ("ppm_predict_",)))
+            route, chunk = ck.ppm_launch_shape(shape, ax)
+            bound, by = bound_ms("ppm_predict", s.numel())
+            say(f"timing ppm_predict      {str(shape):16s} ax{ax} "
+                f"{route}/{chunk:<4d} kernel={out[shape, ax][0]:.4f} ms "
+                f"plain={out[shape, ax][1]:.4f} ms kernel device time="
+                f"{out[shape, ax][2]:.4f} ms bound={bound:.4f} ms ({by})")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -321,8 +361,8 @@ def smoother_check(name, label, got, want, line):
 
 
 def gsrb_parity(torch, gk, device):
-    """Returns {kernel: max abs err over its cases}; raises where K5 differs
-    from its twin in any bit or K6 by more than PARITY_RTOL * max|input|."""
+    """Returns {kernel: max abs err over its cases}; raises where K5 or K6
+    differs from its twin in any bit."""
     from somar_tpu_torch.ops import rb_sweeps as rb
     worst = {"gsrb_sweeps": 0.0, "helm_residual": 0.0}
     gen = torch.Generator(device=device).manual_seed(4321)
@@ -331,8 +371,6 @@ def gsrb_parity(torch, gk, device):
         dtype = getattr(torch, dtname)
         phi, rhs = (torch.randn(plan.shape, generator=gen, device=device,
                                 dtype=dtype) for _ in range(2))
-        limit = PARITY_RTOL * max(float(phi.abs().max()),
-                                  float(rhs.abs().max()))
         for alpha, beta in GSRB_COEFS:
             for it in (1, 4):
                 want = gk.gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, it)
@@ -349,16 +387,11 @@ def gsrb_parity(torch, gk, device):
             got = gk.helm_residual(plan, phi, rhs, alpha, beta)
             want = gk.helm_residual_plain(plan, phi, rhs, alpha, beta)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ok = err <= limit and got.shape == want.shape \
-                and bool(torch.isfinite(got).all())
-            say(f"parity helm_residual    {label:22s} a={alpha} b={beta} "
-                f"max_abs_err={err:.3e} limit={limit:.3e} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise PhaseError(f"helm_residual {label}: kernel and twin "
-                                 "disagree")
-            worst["helm_residual"] = max(worst["helm_residual"], err)
+            worst["helm_residual"] = max(
+                worst["helm_residual"], smoother_check(
+                    "helm_residual", label, got, want,
+                    f"parity helm_residual    {label:22s} a={alpha} "
+                    f"b={beta}"))
     return worst
 
 
@@ -410,26 +443,48 @@ def path2_relax_launches(torch, gk, device, mg):
 
 
 def gsrb_timing(torch, gk, device):
-    """{kernel: (ms, plain_ms, device_ms)} at GSRB_SHAPE f32 with the
-    pressure BCs: K5 per sweep (iters=1: one tiled launch), K6 per call."""
+    """{"gsrb_sweeps": (ms, plain_ms, device_ms)}: K5 per sweep (iters=1:
+    one tiled launch) at GSRB_SHAPE f32 with the pressure BCs (K6:
+    k6_level_timing)."""
     nx, per, lo, hi, _ = GSRB_CASES["pressure 128,128,512"]
     plan = gsrb_plan(gk, nx, per, lo, hi)
     gen = torch.Generator(device=device).manual_seed(99)
     phi, rhs = (torch.randn(plan.shape, generator=gen, device=device)
                 for _ in range(2))
+    times = (median_ms(torch, lambda: gk.gsrb_sweeps(plan, phi, rhs, 0.0,
+                                                     1.0, 1)),
+             median_ms(torch, lambda: gk.gsrb_sweeps_plain(plan, phi, rhs,
+                                                           0.0, 1.0, 1)),
+             device_ms(torch, lambda: gk.gsrb_sweeps(plan, phi, rhs, 0.0,
+                                                     1.0, 1), K5_NAMES))
+    say(f"timing gsrb_sweeps      {'pressure 128,128,512':22s} "
+        f"kernel={times[0]:.4f} ms plain={times[1]:.4f} ms "
+        f"kernel device time={times[2]:.4f} ms")
+    return {"gsrb_sweeps": times}
+
+
+def k6_level_timing(torch, gk, device):
+    """{level shape: (ms, plain_ms, device_ms)} of K6 (f32, pressure BCs)
+    on every multigrid level of main path 2."""
+    gen = torch.Generator(device=device).manual_seed(98)
     out = {}
-    for name, cu_names, kern, plain in (
-            ("gsrb_sweeps", K5_NAMES,
-             lambda: gk.gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, 1),
-             lambda: gk.gsrb_sweeps_plain(plan, phi, rhs, 0.0, 1.0, 1)),
-            ("helm_residual", ("helm_residual_kernel",),
-             lambda: gk.helm_residual(plan, phi, rhs, 0.0, 1.0),
-             lambda: gk.helm_residual_plain(plan, phi, rhs, 0.0, 1.0))):
-        out[name] = (median_ms(torch, kern), median_ms(torch, plain),
-                     device_ms(torch, kern, cu_names))
-        say(f"timing {name:16s} {'pressure 128,128,512':22s} "
-            f"kernel={out[name][0]:.4f} ms plain={out[name][1]:.4f} ms "
-            f"kernel device time={out[name][2]:.4f} ms")
+    for shape in PATH2_LEVELS:
+        plan = gsrb_plan(gk, shape[::-1], (False, True, False), "NPN", "NPN")
+        phi, rhs = (torch.randn(shape, generator=gen, device=device)
+                    for _ in range(2))
+        out[shape] = (
+            median_ms(torch, lambda: gk.helm_residual(plan, phi, rhs, 0.0,
+                                                      1.0)),
+            median_ms(torch, lambda: gk.helm_residual_plain(plan, phi, rhs,
+                                                            0.0, 1.0)),
+            device_ms(torch, lambda: gk.helm_residual(plan, phi, rhs, 0.0,
+                                                      1.0),
+                      ("helm_residual_kernel",)))
+        bound, by = bound_ms("helm_residual", phi.numel())
+        say(f"timing helm_residual    {str(shape):16s} "
+            f"kernel={out[shape][0]:.4f} ms plain={out[shape][1]:.4f} ms "
+            f"kernel device time={out[shape][2]:.4f} ms "
+            f"bound={bound:.4f} ms ({by})")
     return out
 
 
@@ -512,7 +567,9 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     """Drive one main path through entry.run and check it; `counters` are
     the kernel modules whose launch counts are set to 0 just before the run
     and read just after (every counted kernel must have been launched).
-    Returns (launches of the run, launches per timed step, ms/step)."""
+    Returns (launches of the run, launches per timed step, ms/step, {kernel:
+    {level shape: launches per timed step}} of the kernels that count by
+    level)."""
     from somar_tpu_torch.solvers.host_reads import read_scalars
     level, grid = entry.build_level(nx=nx, nz=nz, ny=ny, device=device,
                                     **level_kw)
@@ -579,10 +636,17 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     for mod in counters:
         per_step.update({n: c / (samples * sample_steps)
                          for n, c in mod.launch_counts().items()})
+    by_level = {k.__name__: {sh: c / (samples * sample_steps)
+                             for sh, c in k.launches_by_shape.items()}
+                for mod in counters for k in mod.KERNELS
+                if hasattr(k, "launches_by_shape")}
     diag = {}
     state = level.advance(state, dt, diag=diag)
     if not bool(torch.isfinite(state.vel).all()):
         raise PhaseError("non-finite state after the timed steps")
+    for name, per_level in by_level.items():
+        say(f"main path {label}: {name} launches per step by level "
+            + json.dumps({str(sh): v for sh, v in per_level.items()}))
     ms = 1e3 * statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
     say(f"main path {label} timing {grid.nx}: ms/step={ms:.3f} samples="
@@ -592,7 +656,7 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
         f" launches/step={json.dumps(per_step)}"
         f" max|div| of the projected advecting velocity="
         f"{float(diag['max_mac_div']):.3e} on {smi}")
-    return launches, per_step, ms
+    return launches, per_step, ms, by_level
 
 
 # --------------------------------------------------------------------------
@@ -788,7 +852,7 @@ def device_ms(torch, fn, kernels, calls=20):
     host's launch gaps that a CUDA-event pair around one call includes.
     The median of 5 windows of `calls` calls, each after 50 ms of
     back-to-back calls (the card at its clocks under load)."""
-    from somar_tpu_torch.smoother_bench import device_ms as dev
+    from somar_tpu_torch.kernel_bench import device_ms as dev
     return dev(torch, fn, kernels, calls)
 
 
@@ -1011,7 +1075,12 @@ def main() -> int:
     relax = {"main path 2": path2_relax_launches(torch, gk, device, mg),
              "main path 3": path3_levels(torch, entry, sgk, device, errs)}
     timing = kernel_timing(torch, ck, device)
+    k1_times = k1_timing(torch, ck, device)
+    timing["ppm_predict"] = tuple(statistics.mean(
+        k1_times[SHAPE3, ax][i] for ax in range(3)) for i in range(3))
     timing.update(gsrb_timing(torch, gk, device))
+    k6_times = k6_level_timing(torch, gk, device)
+    timing["helm_residual"] = k6_times[GSRB_SHAPE]
     st_timing = stencil_timing(torch, sgk, device)
     solve_parity(torch, device, mg)
     step_parity(torch, entry, device)
@@ -1021,14 +1090,34 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         raise PhaseError("TF32 is on: the levels' spectral solvers switch "
                          "it off")
-    launches, _, _ = main_path(torch, entry, (ck,), device, smi)
-    launches_mg, per_step_mg, _ = main_path(
+    launches, _, _, _ = main_path(torch, entry, (ck,), device, smi)
+    launches_mg, per_step_mg, _, by_level_mg = main_path(
         torch, entry, (ck, gk), device, smi, label="multigrid", nsteps=10,
         sample_steps=5, pressure_solver="mg", mg=mg)
     ig_solve_parity(torch, entry, device)
     beam_step_parity(torch, entry, device)
     launches_beam, per_step_beam, _ = beam_path(torch, entry, (ck, gk, sgk),
                                                 device, smi)
+
+    k6_levels = {}
+    for shape, (ms, plain, dev) in k6_times.items():
+        bound = bound_ms("helm_residual", math.prod(shape))[0]
+        k6_levels[str(shape)] = dict(
+            launches_per_step=by_level_mg["helm_residual"].get(shape, 0.0),
+            ms=ms, plain_ms=plain, device_ms=dev, bound_ms=bound)
+    dev = sum(v["launches_per_step"] * v["device_ms"]
+              for v in k6_levels.values())
+    gap = sum(v["launches_per_step"] * (v["device_ms"] - v["bound_ms"])
+              for v in k6_levels.values())
+    say(f"main path 2: K6 per step, sum over levels of launches x device "
+        f"time = {dev:.4f} ms, of launches x (device time - bound) = "
+        f"{gap:.4f} ms")
+    k1_axes = {}
+    for (shape, ax), (ms, plain, dev) in k1_times.items():
+        route, chunk = ck.ppm_launch_shape(shape, ax)
+        k1_axes[f"{shape} ax{ax}"] = dict(
+            route=route, chunk=chunk, ms=ms, plain_ms=plain, device_ms=dev,
+            bound_ms=bound_ms("ppm_predict", math.prod(shape))[0])
 
     kernels = []
     beam_cells, beam_K, beam_times = st_timing["beam 512,640"]
@@ -1063,6 +1152,10 @@ def main() -> int:
             max_abs_err=errs[name], bound_ms=bound, bound_by=by,
             # no single PyTorch call computes any of these functions
             library_ms=None)
+        if name == "ppm_predict":
+            entry_["by_axis"] = k1_axes
+        if name == "helm_residual":
+            entry_["by_level"] = k6_levels
         kernels.append(entry_)
     say(f"smoother launches per 4-sweep relax call by level: "
         f"{json.dumps(relax)}")

@@ -14,11 +14,25 @@
 //   shift_p(a)[i] = a[min(i+1, n-1)],  shift_m(a)[i] = a[max(i-1, 0)],
 //   the PPM states are edge-padded from cells [2, n-3].
 //
-// Design: one thread per output element (grid-stride loop).  Each thread
-// recomputes the handful of neighbour values it needs along the stencil
-// axis instead of sharing them through shared memory.  The kernels are
-// bound by device-memory bandwidth (K1 reads 2 arrays and writes 3: ~20
-// bytes per cell in f32); neighbour re-reads mostly hit L1/L2.
+// What bounds them: device-memory bandwidth.  K1 must read 2 arrays and
+// write 3 (20 bytes a cell in f32) for about 70 flops; K2-K4 move 7-10
+// arrays for a few dozen.
+//
+// K1 reads s and u from device memory about once and computes each cell's
+// PPM states once.  Along a strided axis (0, or 1 of three) one thread owns
+// a line (threads along the contiguous axis, so loads coalesce) and marches
+// over a chunk of faces with the five s values of its newest cell, that
+// cell's states and the previous face's Riemann state in registers; the
+// chunk length (ops/ctu_kernels.ppm_launch_shape, 4-64 faces) gives about
+// eight threads per resident slot on the card, and only a 3-cell halo is
+// read twice.
+// Along the contiguous axis a block stages a row segment of s and u (a
+// whole row up to ROW_SEG faces) with a 3-cell halo in shared memory,
+// computes the segment's cell states into shared memory, syncs once and
+// writes the faces.  Index math is 32-bit (the wrapper takes fewer than
+// 2^31 elements).  K2-K4 (first versions): one thread per output element
+// (grid-stride loop), recomputing the few neighbour values it needs along
+// the stencil axis; neighbour re-reads mostly hit L1/L2.
 //
 // Build with -fmad=false: a contracted multiply-add can flip a limiter
 // comparison or a Riemann branch at an isolated cell, which would make the
@@ -47,19 +61,13 @@ __device__ __forceinline__ T riemann(T lo, T hi, T v) {
   return v > T(1e-12) ? lo : (v < T(-1e-12) ? hi : avg);
 }
 
-// PPM traced states (splus, sminus) of cell c (2 <= c <= n-3) of the line
-// starting at `base` (same math and operation order as _ppm_kernel).
+// PPM traced states (splus, sminus) of a cell c (2 <= c <= n-3) from
+// s[c-2..c+2] and u[c] (same math and operation order as _ppm_kernel).
 template <typename T>
-__device__ __forceinline__ void ppm_states(const T* __restrict__ s,
-                                           const T* __restrict__ u, i64 base,
-                                           i64 st, int c, T dtdx, bool lim,
-                                           T* splus, T* sminus) {
-  const T cm2 = s[base + (i64)(c - 2) * st];
-  const T cm1 = s[base + (i64)(c - 1) * st];
-  const T c0 = s[base + (i64)c * st];
-  const T cp1 = s[base + (i64)(c + 1) * st];
-  const T cp2 = s[base + (i64)(c + 2) * st];
-  const T nu = u[base + (i64)c * st] * dtdx;
+__device__ __forceinline__ void ppm_state(T cm2, T cm1, T c0, T cp1, T cp2,
+                                          T uc, T dtdx, bool lim, T* splus,
+                                          T* sminus) {
+  const T nu = uc * dtdx;
   const T a7 = T(7.0 / 12.0), a1 = T(1.0 / 12.0);
   T sR = a7 * (c0 + cp1) - a1 * (cm1 + cp2);
   T sL = a7 * (cm1 + c0) - a1 * (cm2 + cp1);
@@ -88,35 +96,168 @@ __device__ __forceinline__ int clamp_cell(int c, int n) {
 }
 
 // ---------------------------------------------------------------- K1
+// Face i of a line takes lo = splus of cell clamp(i), hi = sminus of cell
+// clamp(i+1), rie = Riemann(lo, hi, (u[i] + u[min(i+1, n-1)])/2) and
+// corr = (neg_cc u[i]) (rie - rie of face i-1), with rie of face -1 taken
+// as rie of face 0 (the twin's edge padding and shifts).
+
+constexpr int kRowBlock = 128;  // threads of a row block
+constexpr int kRowSmem = 48 * 1024;  // shared memory a launch gets unasked
+
+// Strided stencil axis: one thread per line and chunk [i0, i1) of faces,
+// threads along the contiguous axis.  It marches along the line with a
+// rolling window of five s values, the newest cell's states, splus of the
+// cell before, u[i] and the Riemann state of the face before, so each
+// thread loads s and u about once per face and computes each cell's states
+// once.  EDGE: the chunk reaches the clamped cells (i0 < 3 or i1 > n-3).
+template <typename T, bool EDGE>
+__device__ __forceinline__ void ppm_march(
+    const T* __restrict__ s, const T* __restrict__ u, T* __restrict__ lo,
+    T* __restrict__ hi, T* __restrict__ corr, int base, int st, int n,
+    int i0, int i1, bool lim, T dtdx, T neg_cc) {
+  int c = clamp_cell(i0 - 1, n);
+  T w0 = __ldg(s + base + (c - 2) * st), w1 = __ldg(s + base + (c - 1) * st),
+    w2 = __ldg(s + base + c * st), w3 = __ldg(s + base + (c + 1) * st),
+    w4 = __ldg(s + base + (c + 2) * st);
+  T sp, sm;
+  ppm_state(w0, w1, w2, w3, w4, __ldg(u + base + c * st), dtdx, lim, &sp,
+            &sm);
+  const T sp_before = sp;  // splus of cell clamp(i0 - 1)
+  if (!EDGE || clamp_cell(i0, n) != c) {  // then clamp(i0) = i0 = c + 1
+    ++c;
+    w0 = w1;
+    w1 = w2;
+    w2 = w3;
+    w3 = w4;
+    w4 = __ldg(s + base + (c + 2) * st);
+    ppm_state(w0, w1, w2, w3, w4, __ldg(u + base + c * st), dtdx, lim, &sp,
+              &sm);
+  }
+  T u_i = __ldg(u + base + i0 * st);
+  T rie_prev = T(0);
+  if (i0 > 0) {
+    const T u_m = __ldg(u + base + (i0 - 1) * st);
+    rie_prev = riemann(sp_before, sm, T(0.5) * (u_m + u_i));
+  }
+  T sp_i = sp;  // splus of cell clamp(i)
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    const int ip = EDGE && i + 1 >= n ? n - 1 : i + 1;
+    const T u_ip = __ldg(u + base + ip * st);
+    if (!EDGE || clamp_cell(i + 1, n) != c) {  // a new cell, c + 1 = i + 1
+      ++c;
+      w0 = w1;
+      w1 = w2;
+      w2 = w3;
+      w3 = w4;
+      w4 = __ldg(s + base + (c + 2) * st);
+      ppm_state(w0, w1, w2, w3, w4, u_ip, dtdx, lim, &sp, &sm);
+    }
+    const T rie = riemann(sp_i, sm, T(0.5) * (u_i + u_ip));
+    const T rie_m = (!EDGE || i > 0) ? rie_prev : rie;
+    const int o = base + i * st;
+    lo[o] = sp_i;
+    hi[o] = sm;
+    corr[o] = (neg_cc * u_i) * (rie - rie_m);
+    sp_i = sp;
+    u_i = u_ip;
+    rie_prev = rie;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
-ppm_predict_kernel(const T* __restrict__ s, const T* __restrict__ u,
-                   T* __restrict__ lo, T* __restrict__ hi,
-                   T* __restrict__ corr, i64 total, i64 st, int n, int lim,
-                   T dtdx, T neg_cc) {
-  for (i64 idx = blockIdx.x * (i64)blockDim.x + threadIdx.x; idx < total;
-       idx += (i64)gridDim.x * blockDim.x) {
-    const int i = (int)((idx / st) % n);
-    const i64 base = idx - (i64)i * st;
-    const int cb = clamp_cell(i, n), cc = clamp_cell(i + 1, n);
-    T sp_b, sm_b, sp_c, sm_c;
-    ppm_states(s, u, base, st, cb, dtdx, lim != 0, &sp_b, &sm_b);
-    ppm_states(s, u, base, st, cc, dtdx, lim != 0, &sp_c, &sm_c);
-    const T lo_i = sp_b, hi_i = sm_c;
-    const T u_i = u[idx];
-    const T u_ip = u[i + 1 < n ? idx + st : idx];
-    const T rie_i = riemann(lo_i, hi_i, T(0.5) * (u_i + u_ip));
-    T rie_m = rie_i;
-    if (i > 0) {
-      T sp_a, sm_a;
-      ppm_states(s, u, base, st, clamp_cell(i - 1, n), dtdx, lim != 0, &sp_a,
-                 &sm_a);
-      rie_m = riemann(sp_a, sm_b, T(0.5) * (u[idx - st] + u_i));
-    }
-    lo[idx] = lo_i;
-    hi[idx] = hi_i;
-    corr[idx] = (neg_cc * u_i) * (rie_i - rie_m);
+ppm_predict_march_kernel(const T* __restrict__ s, const T* __restrict__ u,
+                         T* __restrict__ lo, T* __restrict__ hi,
+                         T* __restrict__ corr, int cols, int st, int n,
+                         int chunk, int lim, T dtdx, T neg_cc) {
+  const int col = blockIdx.x * kBlock + threadIdx.x;
+  if (col >= cols) return;
+  const int outer = col / st;
+  const int base = outer * n * st + (col - outer * st);
+  const int i0 = blockIdx.y * chunk;
+  const int i1 = min(i0 + chunk, n);
+  if (i0 >= 3 && i1 <= n - 3)
+    ppm_march<T, false>(s, u, lo, hi, corr, base, st, n, i0, i1, lim != 0,
+                        dtdx, neg_cc);
+  else
+    ppm_march<T, true>(s, u, lo, hi, corr, base, st, n, i0, i1, lim != 0,
+                       dtdx, neg_cc);
+}
+
+// Contiguous stencil axis: one block per segment [x0, x1) of a line (its
+// length `seg` is chosen by the caller, ops/ctu_kernels.ppm_launch_shape).  It stages s and u of the segment with a
+// 3-cell halo in shared memory (coalesced, each element once), computes the
+// states of cells clamp(x0-1) .. clamp(x1) once into shared memory, syncs,
+// and writes the faces.
+template <typename T>
+__global__ void __launch_bounds__(kRowBlock)
+ppm_predict_row_kernel(const T* __restrict__ s, const T* __restrict__ u,
+                       T* __restrict__ lo, T* __restrict__ hi,
+                       T* __restrict__ corr, int n, int seg, int nseg,
+                       int lim, T dtdx, T neg_cc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_sm = reinterpret_cast<T*>(smem_raw);  // seg + 6 entries
+  T* u_sm = s_sm + seg + 6;                  // seg + 6
+  T* sp_sm = u_sm + seg + 6;                 // seg + 2
+  T* sm_sm = sp_sm + seg + 2;                // seg + 2
+  const int row = blockIdx.x / nseg;
+  const int x0 = (blockIdx.x - row * nseg) * seg;
+  const int x1 = min(x0 + seg, n);
+  const int base = row * n;
+  const int cL = clamp_cell(x0 - 1, n), cH = clamp_cell(x1, n);
+  const int ncell = cH - cL + 1;
+  const int sL = cL - 2;
+  const int uL = min(max(x0 - 1, 0), cL);
+  const int uH = max(min(x1, n - 1), cH);
+  for (int k = threadIdx.x; k < ncell + 4; k += kRowBlock)
+    s_sm[k] = __ldg(s + base + sL + k);
+  for (int k = threadIdx.x; k <= uH - uL; k += kRowBlock)
+    u_sm[k] = __ldg(u + base + uL + k);
+  __syncthreads();
+  for (int k = threadIdx.x; k < ncell; k += kRowBlock)
+    ppm_state(s_sm[k], s_sm[k + 1], s_sm[k + 2], s_sm[k + 3], s_sm[k + 4],
+              u_sm[cL + k - uL], dtdx, lim != 0, sp_sm + k, sm_sm + k);
+  __syncthreads();
+  for (int i = x0 + threadIdx.x; i < x1; i += kRowBlock) {
+    const T u_i = u_sm[i - uL];
+    const T u_ip = u_sm[min(i + 1, n - 1) - uL];
+    const int ci = clamp_cell(i, n) - cL;
+    const T lo_i = sp_sm[ci];
+    const T hi_i = sm_sm[clamp_cell(i + 1, n) - cL];
+    const T rie = riemann(lo_i, hi_i, T(0.5) * (u_i + u_ip));
+    T rie_m = rie;
+    if (i > 0)
+      rie_m = riemann(sp_sm[clamp_cell(i - 1, n) - cL], sm_sm[ci],
+                      T(0.5) * (u_sm[i - 1 - uL] + u_i));
+    lo[base + i] = lo_i;
+    hi[base + i] = hi_i;
+    corr[base + i] = (neg_cc * u_i) * (rie - rie_m);
   }
+}
+
+// st == 1: the row kernel with segments of `chunk` faces; otherwise the
+// march with chunks of `chunk` faces.
+template <typename T>
+int launch_ppm_predict(const T* s, const T* u, T* lo, T* hi, T* corr,
+                       int total, int st, int n, int chunk, int lim, T dtdx,
+                       T neg_cc, cudaStream_t stream) {
+  if (n < 5 || chunk < 1 || total < n) return (int)cudaErrorInvalidValue;
+  const int nchunk = (n + chunk - 1) / chunk;
+  if (st == 1) {
+    const size_t smem = (size_t)(4 * chunk + 16) * sizeof(T);
+    if (smem > kRowSmem) return (int)cudaErrorInvalidValue;
+    ppm_predict_row_kernel<T><<<(total / n) * nchunk, kRowBlock, smem,
+                                stream>>>(s, u, lo, hi, corr, n, chunk,
+                                          nchunk, lim, dtdx, neg_cc);
+  } else {
+    if (nchunk > 65535) return (int)cudaErrorInvalidValue;
+    const int cols = total / n;
+    const dim3 grid((cols + kBlock - 1) / kBlock, nchunk);
+    ppm_predict_march_kernel<T><<<grid, kBlock, 0, stream>>>(
+        s, u, lo, hi, corr, cols, st, n, chunk, lim, dtdx, neg_cc);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K2
@@ -249,12 +390,11 @@ riemann_fluxdiv_kernel(const T* __restrict__ adv, FluxArgs<T> a, int nf,
 #define SOMAR_CTU_ENTRY_POINTS(T, SUF)                                        \
   extern "C" int ctu_ppm_predict_##SUF(                                       \
       const void* s, const void* u, void* lo, void* hi, void* corr,           \
-      i64 total, i64 st, int n, int lim, T dtdx, T neg_cc, void* stream) {    \
-    ppm_predict_kernel<T><<<grid_for(total), kBlock, 0,                       \
-                            (cudaStream_t)stream>>>(                          \
-        (const T*)s, (const T*)u, (T*)lo, (T*)hi, (T*)corr, total, st, n,     \
-        lim, dtdx, neg_cc);                                                   \
-    return (int)cudaGetLastError();                                           \
+      int total, int st, int n, int chunk, int lim, T dtdx, T neg_cc,         \
+      void* stream) {                                                         \
+    return launch_ppm_predict<T>((const T*)s, (const T*)u, (T*)lo, (T*)hi,    \
+                                 (T*)corr, total, st, n, chunk, lim, dtdx,    \
+                                 neg_cc, (cudaStream_t)stream);               \
   }                                                                           \
   extern "C" int ctu_corr3_##SUF(                                             \
       const void* lo1, const void* hi1, const void* u, const void* c0,        \

@@ -20,9 +20,10 @@
 //
 // Arrays are contiguous, unpadded cell arrays of two or three axes, viewed
 // as (n0, n1, n2) with inactive leading axes of extent 1 (`first` is the
-// first active axis).  The kernels are bound by device-memory bandwidth: a
-// sweep must read p and rhs and write p (12 bytes a cell in f32) for a few
-// dozen flops.
+// first active axis), of fewer than 2^31 cells (32-bit index math).  The
+// kernels are bound by device-memory bandwidth: a sweep must read p and
+// rhs and write p, the residual must read p and rhs and write out (12
+// bytes a cell in f32), for a few dozen flops.
 //
 // K5 has two variants (csrc/rb_sweep.cuh), chosen per plan by
 // ops/rb_sweeps.py: on a level whose p ping-pong pair fits one block's
@@ -31,8 +32,21 @@
 // memory); on larger levels one launch does a full red+black sweep on
 // shared-memory tiles (2-cell halos, red on the tile and a ring, black on
 // the tile) and moves p, rhs and the output about once.  The boundary-face
-// factors come from global indices, as in K6.  K6 is one thread per cell
-// (grid-stride loop), no shared memory; neighbour re-reads hit L1/L2.
+// factors come from global indices, as in K6.
+//
+// K6 reads p and rhs from device memory once and writes out once.  Each
+// thread owns one column of a tile across the first active axis (3D: 8 x
+// 32 cells of the (axis 1, axis 2) plane, neighbouring threads on
+// neighbouring addresses along axis 2; 2D: 128 cells of axis 2) and marches
+// along the first active axis over a chunk of planes, with p[-1], p[0] and
+// p[+1] of its column in registers: each plane of p is fetched once as the
+// plane ahead and then moves through registers.  The in-plane neighbours
+// are loaded directly; the rows they sit in were fetched by the same block
+// one plane step earlier, so L1 serves them without a sync (only the tile's
+// one-cell halo comes from L2).  Chunks are sized so that the finest level
+// has about 16 blocks per SM (residual_chunk).  Blocks whose tile and chunk
+// touch no boundary and no periodic seam take a fast path with no
+// per-axis boundary code; only edge blocks apply flo/fhi and the wraps.
 //
 // Build with -fmad=false: every multiply and add is rounded separately, as
 // the plain PyTorch versions compute them.
@@ -46,88 +60,36 @@
 
 namespace {
 
-typedef long long i64;
-
-constexpr int kBlock = 256;
-
-inline int grid_for(i64 total) {
-  i64 blocks = (total + kBlock - 1) / kBlock;
-  const i64 cap = 132 * 64;  // enough resident blocks for every SM
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+// One axis's Laplacian term, in the twin's operation order.
+template <typename T>
+__device__ __forceinline__ T lap_term(T coef, T wlo, T whi, T lo, T hi,
+                                      T pc) {
+  return coef * (whi * (hi - pc) - wlo * (pc - lo));
 }
 
+// The term of an in-plane axis of extent n and stride st at a cell with
+// index i along it (value pc, flat index idx), with its boundary factors or
+// periodic wrap.
 template <typename T>
-struct Plan {
-  int n[3];
-  int per[3];
-  int first;
-  i64 st[3];
-  T coef[3];
-  T flo[3];
-  T fhi[3];
-};
-
-template <typename T>
-Plan<T> make_plan(int first, const int* n, const int* per, const double* coef,
-                  const double* flo, const double* fhi) {
-  Plan<T> pl;
-  pl.first = first;
-  for (int a = 0; a < 3; ++a) {
-    pl.n[a] = n[a];
-    pl.per[a] = per[a];
-    pl.coef[a] = (T)coef[a];
-    pl.flo[a] = (T)flo[a];
-    pl.fhi[a] = (T)fhi[a];
+__device__ __forceinline__ T edge_term(const T* __restrict__ p, int idx,
+                                       int i, int n, int st, bool per,
+                                       T coef, T flo, T fhi, T pc) {
+  const bool at_lo = i == 0, at_hi = i == n - 1;
+  T lo, hi, wlo = T(1), whi = T(1);
+  if (per) {
+    lo = __ldg(p + (at_lo ? idx + (n - 1) * st : idx - st));
+    hi = __ldg(p + (at_hi ? idx - (n - 1) * st : idx + st));
+  } else {
+    lo = at_lo ? T(0) : __ldg(p + idx - st);
+    hi = at_hi ? T(0) : __ldg(p + idx + st);
+    if (at_lo) wlo = flo;
+    if (at_hi) whi = fhi;
   }
-  pl.st[2] = 1;
-  pl.st[1] = n[2];
-  pl.st[0] = (i64)n[1] * n[2];
-  return pl;
-}
-
-// The wrapper takes arrays of fewer than 2^31 cells, so the index splits
-// with 32-bit divisions (a 64-bit one costs several times as much).
-__device__ __forceinline__ void cell_index(i64 idx, const int* n, int* i) {
-  const unsigned u = (unsigned)idx;
-  const unsigned q = u / (unsigned)n[2];
-  i[2] = (int)(u - q * (unsigned)n[2]);
-  const unsigned r = q / (unsigned)n[1];
-  i[1] = (int)(q - r * (unsigned)n[1]);
-  i[0] = (int)r;
-}
-
-// lap(p) at cell idx (value pc); *diag receives the operator's Laplacian
-// diagonal there.  Axes are accumulated in array-axis order.
-template <typename T>
-__device__ __forceinline__ T lap_diag(const T* __restrict__ p,
-                                      const Plan<T>& pl, i64 idx,
-                                      const int* i, T pc, T* diag) {
-  T lap = T(0), dg = T(0);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (a < pl.first) continue;
-    const int n = pl.n[a];
-    const i64 st = pl.st[a];
-    const bool at_lo = i[a] == 0, at_hi = i[a] == n - 1;
-    T lo, hi, wlo = T(1), whi = T(1);
-    if (pl.per[a]) {
-      lo = p[at_lo ? idx + (i64)(n - 1) * st : idx - st];
-      hi = p[at_hi ? idx - (i64)(n - 1) * st : idx + st];
-    } else {
-      lo = at_lo ? T(0) : p[idx - st];
-      hi = at_hi ? T(0) : p[idx + st];
-      if (at_lo) wlo = pl.flo[a];
-      if (at_hi) whi = pl.fhi[a];
-    }
-    lap = lap + pl.coef[a] * (whi * (hi - pc) - wlo * (pc - lo));
-    dg = dg - pl.coef[a] * (wlo + whi);
-  }
-  *diag = dg;
-  return lap;
+  return lap_term(coef, wlo, whi, lo, hi, pc);
 }
 
 // ---------------------------------------------------------------- K5
-// The smoother as an rb::Op: the same arithmetic as lap_diag and K6, with
+// The smoother as an rb::Op: the same arithmetic as K6 (lap_term), with
 // the neighbours taken from shared memory.  Away from non-periodic
 // boundaries every cell has the same diagonal, so its division is done once
 // per thread (`inv_in`, by the same operations).
@@ -202,25 +164,95 @@ uniform_gsrb_tiled_kernel(const T* __restrict__ p, T* __restrict__ out,
   rb::tiled_body(op, p, out, tz);
 }
 
+
 // ---------------------------------------------------------------- K6
+// Tile of one block across the march axis: 3D 32 (axis 2) x 8 (axis 1)
+// columns marching along axis 0; 2D 128 columns of axis 2 marching along
+// axis 1.
+template <int ND>
+struct ResTile;
+template <>
+struct ResTile<3> {
+  static constexpr int X = 32, Y = 8;
+};
+template <>
+struct ResTile<2> {
+  static constexpr int X = 128, Y = 1;
+};
+
+constexpr int kResBlocks = 132 * 16;  // blocks wanted on the finest level
+constexpr int kResMinChunk = 4;       // planes a block marches where the
+                                      // level has blocks enough for that
+
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
+struct ResArgs {
+  int n[3];
+  int per[3];
+  T coef[3], flo[3], fhi[3];
+  T alpha, beta;
+  int chunk;  // planes per block along the march axis
+};
+
+template <typename T, int ND>
+__global__ void __launch_bounds__(ResTile<ND>::X* ResTile<ND>::Y)
 helm_residual_kernel(const T* __restrict__ p, const T* __restrict__ rhs,
-                     T* __restrict__ out, Plan<T> pl, i64 total, T alpha,
-                     T beta) {
-  for (i64 idx = blockIdx.x * (i64)blockDim.x + threadIdx.x; idx < total;
-       idx += (i64)gridDim.x * blockDim.x) {
-    int i[3];
-    cell_index(idx, pl.n, i);
-    const T pc = p[idx];
-    T dg;
-    const T lap = lap_diag(p, pl, idx, i, pc, &dg);
-    out[idx] = rhs[idx] - alpha * pc - beta * lap;
+                     T* __restrict__ out, ResArgs<T> a) {
+  constexpr int M = 3 - ND;  // march axis: the first active one
+  constexpr int X = ResTile<ND>::X, Y = ResTile<ND>::Y;
+  const int nm = a.n[M], n1 = a.n[1], n2 = a.n[2];
+  const int P = ND == 3 ? n1 * n2 : n2;  // plane stride
+  const int b2 = blockIdx.x * X, b1 = blockIdx.y * Y;
+  const int c0 = blockIdx.z * a.chunk;
+  const int c1 = min(c0 + a.chunk, nm);
+  const int i2 = b2 + threadIdx.x;
+  const int i1 = ND == 3 ? b1 + threadIdx.y : 0;
+  if (i2 >= n2 || i1 >= n1) return;
+  int idx = c0 * P + (ND == 3 ? i1 * n2 : 0) + i2;
+  // Block-uniform: the block's box and its one-cell halo stay inside the
+  // domain, so no neighbour wraps and every boundary factor is 1.
+  const bool interior = c0 >= 1 && c1 <= nm - 1 && b2 >= 1 &&
+                        b2 + X <= n2 - 1 &&
+                        (ND == 2 || (b1 >= 1 && b1 + Y <= n1 - 1));
+  if (interior) {
+    T prev = __ldg(p + idx - P), cur = __ldg(p + idx);
+    for (int c = c0; c < c1; ++c, idx += P) {
+      const T next = __ldg(p + idx + P);
+      T lap = a.coef[M] * ((next - cur) - (cur - prev));
+      if (ND == 3)
+        lap = lap + a.coef[1] * ((__ldg(p + idx + n2) - cur) -
+                                 (cur - __ldg(p + idx - n2)));
+      lap = lap + a.coef[2] * ((__ldg(p + idx + 1) - cur) -
+                               (cur - __ldg(p + idx - 1)));
+      out[idx] = __ldg(rhs + idx) - a.alpha * cur - a.beta * lap;
+      prev = cur;
+      cur = next;
+    }
+    return;
+  }
+  const bool per_m = a.per[M] != 0;
+  T prev = c0 > 0 ? __ldg(p + idx - P)
+                  : (per_m ? __ldg(p + idx + (nm - 1) * P) : T(0));
+  T cur = __ldg(p + idx);
+  for (int c = c0; c < c1; ++c, idx += P) {
+    const T next = c + 1 < nm ? __ldg(p + idx + P)
+                              : (per_m ? __ldg(p + idx - (nm - 1) * P) : T(0));
+    T wlo = T(1), whi = T(1);
+    if (!per_m) {
+      if (c == 0) wlo = a.flo[M];
+      if (c == nm - 1) whi = a.fhi[M];
+    }
+    T lap = lap_term(a.coef[M], wlo, whi, prev, next, cur);
+    if (ND == 3)
+      lap = lap + edge_term(p, idx, i1, n1, n2, a.per[1] != 0, a.coef[1],
+                            a.flo[1], a.fhi[1], cur);
+    lap = lap + edge_term(p, idx, i2, n2, 1, a.per[2] != 0, a.coef[2],
+                          a.flo[2], a.fhi[2], cur);
+    out[idx] = __ldg(rhs + idx) - a.alpha * cur - a.beta * lap;
+    prev = cur;
+    cur = next;
   }
 }
 
-// variant 0: one whole-level launch p -> out0; variant 1: `iters` tiled
-// sweeps p -> out0 -> out1 -> out0 ... (chunks of tz planes along axis 0)
 template <typename T, int ND>
 int launch_gsrb_sweeps(const T* p, const T* rhs, T* out0, T* out1,
                        const int* n, const int* per, const double* coef,
@@ -289,17 +321,60 @@ int gsrb_sweeps(const void* p, const void* rhs, void* out0, void* out1,
       alpha, beta, weight, iters, variant, tz, (cudaStream_t)stream);
 }
 
-template <typename T>
-int launch_helm_residual(const void* p, const void* rhs, void* out, int first,
-                         const int* n, const int* per, const double* coef,
+// Planes per K6 block along the march axis (extent nm) for a level of
+// `tiles` tiles: about kResBlocks blocks in all; at least kResMinChunk
+// planes a block where that still leaves a quarter of kResBlocks (longer
+// marches read fewer halo planes), else down to one plane a block so that
+// small levels keep every column parallel; equal chunks, at most 65,535.
+inline int residual_chunk(int nm, int tiles) {
+  const int want = (kResBlocks + tiles - 1) / tiles;
+  const int few = (nm + kResMinChunk - 1) / kResMinChunk;
+  int chunks = want < nm ? want : nm;
+  if ((long long)tiles * few >= kResBlocks / 4 && few < chunks) chunks = few;
+  int chunk = (nm + chunks - 1) / chunks;
+  if ((nm + chunk - 1) / chunk > 65535) chunk = (nm + 65534) / 65535;
+  return chunk;
+}
+
+template <typename T, int ND>
+int launch_helm_residual(const T* p, const T* rhs, T* out, const int* n,
+                         const int* per, const double* coef,
                          const double* flo, const double* fhi, double alpha,
-                         double beta, void* stream) {
-  const Plan<T> pl = make_plan<T>(first, n, per, coef, flo, fhi);
-  const i64 total = (i64)n[0] * n[1] * n[2];
-  helm_residual_kernel<T>
-      <<<grid_for(total), kBlock, 0, (cudaStream_t)stream>>>(
-          (const T*)p, (const T*)rhs, (T*)out, pl, total, (T)alpha, (T)beta);
+                         double beta, cudaStream_t stream) {
+  constexpr int X = ResTile<ND>::X, Y = ResTile<ND>::Y;
+  ResArgs<T> a;
+  for (int k = 0; k < 3; ++k) {
+    a.n[k] = n[k];
+    a.per[k] = per[k];
+    a.coef[k] = (T)coef[k];
+    a.flo[k] = (T)flo[k];
+    a.fhi[k] = (T)fhi[k];
+  }
+  a.alpha = (T)alpha;
+  a.beta = (T)beta;
+  const int tx = (n[2] + X - 1) / X;
+  const int ty = ND == 3 ? (n[1] + Y - 1) / Y : 1;
+  if (ty > 65535) return (int)cudaErrorInvalidValue;
+  const int nm = n[3 - ND];
+  a.chunk = residual_chunk(nm, tx * ty);
+  const dim3 grid(tx, ty, (nm + a.chunk - 1) / a.chunk);
+  helm_residual_kernel<T, ND><<<grid, dim3(X, Y), 0, stream>>>(p, rhs, out, a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int helm_residual(const void* p, const void* rhs, void* out, int first,
+                  const int* n, const int* per, const double* coef,
+                  const double* flo, const double* fhi, double alpha,
+                  double beta, void* stream) {
+  if (first != 0 && first != 1) return (int)cudaErrorInvalidValue;
+  if (first == 0)
+    return launch_helm_residual<T, 3>((const T*)p, (const T*)rhs, (T*)out,
+                                      n, per, coef, flo, fhi, alpha, beta,
+                                      (cudaStream_t)stream);
+  return launch_helm_residual<T, 2>((const T*)p, (const T*)rhs, (T*)out, n,
+                                    per, coef, flo, fhi, alpha, beta,
+                                    (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -329,16 +404,16 @@ int helm_residual_f32(const void* p, const void* rhs, void* out, int first,
                       const int* n, const int* per, const double* coef,
                       const double* flo, const double* fhi, double alpha,
                       double beta, void* stream) {
-  return launch_helm_residual<float>(p, rhs, out, first, n, per, coef, flo,
-                                     fhi, alpha, beta, stream);
+  return helm_residual<float>(p, rhs, out, first, n, per, coef, flo, fhi,
+                              alpha, beta, stream);
 }
 
 int helm_residual_f64(const void* p, const void* rhs, void* out, int first,
                       const int* n, const int* per, const double* coef,
                       const double* flo, const double* fhi, double alpha,
                       double beta, void* stream) {
-  return launch_helm_residual<double>(p, rhs, out, first, n, per, coef, flo,
-                                      fhi, alpha, beta, stream);
+  return helm_residual<double>(p, rhs, out, first, n, per, coef, flo, fhi,
+                               alpha, beta, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,14 @@
-"""Times of the red-black smoothers K5 and K7 on one GPU, per call.
+"""Times of the red-black smoothers K5 and K7, the uniform residual K6 and
+the PPM predictor K1 on one GPU, per call.
 
-    python3 -m somar_tpu_torch.smoother_bench [--root DIR] [--out FILE]
+    python3 somar_tpu_torch/kernel_bench.py [--root DIR] [--out FILE]
 
 Imports the `somar_tpu_torch` package found under --root (default: the
 current directory), so that one call can time two trees of the repository
-in turns.  Uses only wrapper arguments that every version of the port
-takes.  Every measurement follows 0.2 s of back-to-back calls.  Per case
-(f32, random phi and rhs, alpha = 0, beta = 1):
+in turns (run it as a script: `python3 -m` would import the package of the
+current directory first).  Uses only wrapper arguments that every version
+of the port takes.  Every measurement follows 0.2 s of back-to-back calls.
+Per case (f32, random inputs; K5-K7 with alpha = 0, beta = 1):
 
   * ms      median over 50 calls of a CUDA-event pair around one call;
   * dev_ms  device time per call of every kernel the call launches: the
@@ -21,11 +23,14 @@ takes.  Every measurement follows 0.2 s of back-to-back calls.  Per case
             sweep's bytes (`bound_ms`, each array read or written once);
   * sm_clock the SM clock nvidia-smi reads right after the measurements.
 
-Cases: K5 at (128,128,512), the finest level of main path 2, 1 and 4
-sweeps, and at (16,16,64), 4 sweeps; K7 at (512,640), the finest level of
-main path 3 (K = 8), 1 and 4 sweeps, at (32,320), 4 sweeps, and at a
-twisted 3D level (128,256,256) (K = 18), 1 sweep.  Prints one JSON object
-per case and writes the list to --out.
+Cases: K5 at (128,128,512),
+the finest level of main path 2, 1 and 4 sweeps, and at (16,16,64), 4
+sweeps; K7 at (512,640), the finest level of main path 3 (K = 8), 1 and 4
+sweeps, at (32,320), 4 sweeps, and at a twisted 3D level (128,256,256)
+(K = 18), 1 sweep; K6 on every multigrid level of main path 2 with the
+pressure BCs; K1 (limited) along every axis of main path 1's padded array
+(136,136,520) and of main path 3's (520,648).  Prints one JSON object per
+case and writes the list to --out.
 """
 
 from __future__ import annotations
@@ -114,6 +119,23 @@ def device_ms(torch, fn, names=None, calls=20, windows=5):
     return statistics.median(vals) if vals else float("nan")
 
 
+#: K6 cases: the multigrid levels of main path 2
+K6_LEVELS = [(128, 128, 512), (64, 64, 256), (32, 32, 128), (16, 16, 64),
+             (8, 8, 32), (4, 4, 16), (2, 2, 8), (2, 2, 4), (2, 2, 2)]
+#: K1 cases: (padded shape, stencil axis)
+K1_CASES = [((136, 136, 520), 0), ((136, 136, 520), 1), ((136, 136, 520), 2),
+            ((520, 648), 0), ((520, 648), 1)]
+
+
+#: (kernel, shape, sweeps or stencil axis) of every case
+CASES = ([("K5", (128, 128, 512), 1), ("K5", (128, 128, 512), 4),
+          ("K5", (16, 16, 64), 4), ("K7", (512, 640), 1),
+          ("K7", (512, 640), 4), ("K7", (32, 320), 4),
+          ("K7", (128, 256, 256), 1)]
+         + [("K6", shape, 1) for shape in K6_LEVELS]
+         + [("K1", shape, ax) for shape, ax in K1_CASES])
+
+
 def _time(torch, fn, mod):
     """(events ms, device ms, host us, launches) per call of fn."""
     warm(torch, fn)
@@ -149,28 +171,32 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
-        raise SystemExit("smoother_bench needs a CUDA device")
+        raise SystemExit("kernel_bench needs a CUDA device")
+    from somar_tpu_torch.ops import ctu_kernels as ck
     from somar_tpu_torch.ops import gsrb_kernels as gk
     from somar_tpu_torch.ops import stencil_gsrb_kernels as sgk
     import somar_tpu_torch
     device = "cuda"
     gen = torch.Generator(device=device).manual_seed(99)
     rows = []
-    cases = [("K5", (128, 128, 512), 1), ("K5", (128, 128, 512), 4),
-             ("K5", (16, 16, 64), 4), ("K7", (512, 640), 1),
-             ("K7", (512, 640), 4), ("K7", (32, 320), 4),
-             ("K7", (128, 256, 256), 1)]
     plans = {}
-    for kernel, shape, iters in cases:
-        if (kernel, shape) not in plans:
-            plans[kernel, shape] = (_k5_plan(gk, shape) if kernel == "K5"
-                                    else _k7_plan(shape, device))
-        plan = plans[kernel, shape]
+    for kernel, shape, iters in CASES:
+        if kernel != "K1" and (kernel, shape) not in plans:
+            plans[kernel, shape] = (_k7_plan(shape, device) if kernel == "K7"
+                                    else _k5_plan(gk, shape))
+        plan = plans.get((kernel, shape))
         phi, rhs = (torch.randn(shape, generator=gen, device=device)
                     for _ in range(2))
-        if kernel == "K5":
-            mod, arrays, K = gk, 3, None
+        K = None
+        if kernel == "K1":     # `iters` is the stencil axis
+            mod, arrays = ck, 5
+            fn = lambda: ck.ppm_predict(phi, rhs, 0.3, iters, True, 0.1)
+        elif kernel == "K5":
+            mod, arrays = gk, 3
             fn = lambda: gk.gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, iters)
+        elif kernel == "K6":
+            mod, arrays = gk, 3
+            fn = lambda: gk.helm_residual(plan, phi, rhs, 0.0, 1.0)
         else:
             mod, K = sgk, plan.K
             arrays = K + 5
@@ -181,9 +207,15 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
             capture_output=True, text=True).stdout.strip()
         bound = 1e3 * arrays * phi.numel() * 4 / HBM_BYTES_PER_S
-        row = dict(kernel=kernel, shape=list(shape), K=K, iters=iters,
-                   ms=ms, dev_ms=dev_ms, host_us=host_us, launches=launches,
-                   dev_ms_per_sweep=dev_ms / iters, bound_ms_per_sweep=bound,
+        if kernel == "K1":
+            per = dict(ax=iters, bound_ms=bound)
+        elif kernel == "K6":
+            per = dict(bound_ms=bound)
+        else:
+            per = dict(iters=iters, dev_ms_per_sweep=dev_ms / iters,
+                       bound_ms_per_sweep=bound)
+        row = dict(kernel=kernel, shape=list(shape), K=K, ms=ms,
+                   dev_ms=dev_ms, host_us=host_us, launches=launches, **per,
                    sm_clock=clock,
                    root=os.path.dirname(somar_tpu_torch.__file__))
         print(json.dumps(row), flush=True)

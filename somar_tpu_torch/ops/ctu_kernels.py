@@ -13,11 +13,14 @@ physics/godunov.py), and every stencil runs along exactly one array axis
 `ax`.  What bounds them on the card: device-memory bandwidth.  K1 reads 2
 arrays and writes 3 (~20 bytes per cell in f32), K2 reads 3 + ncorr and
 writes ncorr, K3 reads up to 6 and writes up to 3, K4 reads 1 + 2 nf and
-writes nf; each does a few dozen flops per cell.  Design of this first
-version: one thread per output element, each recomputing the few
-neighbour values it needs along `ax` (no shared-memory tiling), float and
-double instantiations, compiled with -fmad=false so that kernel and twin
-round identically.
+writes nf; each does a few dozen flops per cell.  K1 reads s and u once
+and computes each cell's PPM states once: along a strided axis each thread
+marches a chunk of one line with the states in registers, along the
+contiguous axis a block stages a row segment in shared memory
+(`ppm_launch_shape` picks the chunk or segment).  K2-K4 (first versions):
+one thread per output element, each recomputing the few neighbour values
+it needs along `ax`.  Float and double instantiations, compiled with
+-fmad=false so that kernel and twin round identically.
 
 Dispatch is by the tensor's device: a CPU tensor goes to the `*_plain`
 twin; a CUDA tensor launches the kernel or raises (unsupported dtype,
@@ -41,6 +44,16 @@ from somar_tpu_torch.ops.stencil import shift_m, shift_p
 LIBRARY = ("somar_ctu", ("ctu_kernels.cu",))
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_FIELDS = 4   # kMaxFields of csrc/ctu_kernels.cu
+#: most faces a K1 row block stages: its shared memory, 4 x ROW_SEG + 16
+#: values, stays under the 48 KB a launch gets unasked in f64 too (the C
+#: side checks that bound, not this length)
+ROW_SEG = 1024
+#: K1 march: threads wanted (eight per resident slot of 132 SMs x 2,048:
+#: a thread's march is a chain of dependent steps, so shorter chunks on
+#: more threads win although each chunk recomputes two halo cells) and the
+#: range of the chunk length along the line
+MARCH_THREADS = 8 * 132 * 2048
+MARCH_CHUNK = (4, 64)
 
 
 # --------------------------------------------------------------------------
@@ -156,7 +169,7 @@ def load():
         return lib
     for suf, sc in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         fn = getattr(lib, f"ctu_ppm_predict_{suf}")
-        fn.argtypes = [_VP] * 5 + [_I64, _I64, _INT, _INT, sc, sc, _VP]
+        fn.argtypes = [_VP] * 5 + [_INT] * 5 + [sc, sc, _VP]
         fn = getattr(lib, f"ctu_corr3_{suf}")
         fn.argtypes = [_VP] * 7 + [_INT, _I64, _I64, _INT, sc, _VP]
         fn = getattr(lib, f"ctu_final_{suf}")
@@ -206,6 +219,25 @@ def _line(shape, ax: int):
     return math.prod(shape), math.prod(shape[ax + 1:]), shape[ax]
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def ppm_launch_shape(shape, ax: int) -> Tuple[str, int]:
+    """K1's launch along `ax`: ("row", segment length) where the axis is
+    contiguous (one block stages a row segment of at most ROW_SEG faces),
+    else ("march", chunk length): about MARCH_THREADS threads, each
+    marching over a chunk of MARCH_CHUNK faces (fewer where the line is
+    shorter), equal chunks, at most 65,535 of them a line."""
+    total, st, n = _line(shape, ax)
+    if st == 1:
+        return "row", _ceil(n, _ceil(n, ROW_SEG))
+    lo, hi = MARCH_CHUNK
+    chunk = min(max(_ceil(total, MARCH_THREADS), lo), hi, n)
+    chunk = max(_ceil(n, _ceil(n, chunk)), _ceil(n, 65535))
+    return "march", chunk
+
+
 def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -238,11 +270,14 @@ def ppm_predict(sp, up, dt_over_dx, ax: int, use_limiting: bool,
     total, st, n = _line(sp.shape, ax)
     if n < 5:
         raise ValueError(f"PPM needs >= 5 cells along axis {ax}, got {n}")
+    if total >= 2 ** 31:
+        raise ValueError("ppm_predict takes fewer than 2^31 elements")
+    _, chunk = ppm_launch_shape(sp.shape, ax)
     lo, hi, corr = (torch.empty_like(sp) for _ in range(3))
     suf = _SUFFIX[sp.dtype]
     rc = getattr(load(), f"ctu_ppm_predict_{suf}")(
         _ptr(sp), _ptr(up), _ptr(lo), _ptr(hi), _ptr(corr), total, st, n,
-        int(bool(use_limiting)), float(dt_over_dx),
+        chunk, int(bool(use_limiting)), float(dt_over_dx),
         -float(corr_coef_over_dx), _stream(sp))
     _check(rc, "ppm_predict")
     ppm_predict.launches += 1

@@ -38,13 +38,17 @@ sweep on shared-memory tiles (red on the tile and a 1-cell ring from
 two device buffers.  Every read of a
 half sweep sees the array as it was before that half sweep, on every
 shape, including periodic axes of odd extent or of extent 2, where a
-cell's wrap neighbour has its own colour.  K6 is one thread per cell.
-Compiled with -fmad=false so that kernel and twin round alike.
+cell's wrap neighbour has its own colour.  K6 reads phi and rhs once and
+writes once: each thread marches one column of a tile along the first
+active axis with three planes of phi in registers; blocks off every
+boundary and seam skip the boundary code.  Compiled with -fmad=false so
+that kernel and twin round alike.
 
 Dispatch is by the tensor's device: a CPU tensor goes to the `*_plain`
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
 from a CUDA tensor to the twin.  Each wrapper counts its launches in
-`<wrapper>.launches`.
+`<wrapper>.launches`; K6 also by level shape in
+`helm_residual.launches_by_shape`.
 """
 
 from __future__ import annotations
@@ -321,6 +325,9 @@ def helm_residual(plan: FusedPlan, phi, rhs, alpha, beta):
         float(alpha), float(beta), rb_sweeps.raw_stream(phi))
     _check(rc, "helm_residual")
     helm_residual.launches += 1
+    shape = tuple(plan.shape)
+    helm_residual.launches_by_shape[shape] = \
+        helm_residual.launches_by_shape.get(shape, 0) + 1
     return out
 
 
@@ -328,11 +335,13 @@ def helm_residual(plan: FusedPlan, phi, rhs, alpha, beta):
 KERNELS = (gsrb_sweeps, helm_residual)
 for _k in KERNELS:
     _k.launches = 0
+helm_residual.launches_by_shape = {}
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    helm_residual.launches_by_shape = {}
 
 
 def launch_counts() -> dict:

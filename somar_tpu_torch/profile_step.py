@@ -40,7 +40,8 @@ from somar_tpu_torch.solvers.multigrid import MGParams
 WARMUP_STEPS = 10
 
 GROUPS = (
-    ("CTU kernels K1-K4", ("ppm_predict_kernel", "ctu_corr3_kernel",
+    ("CTU kernels K1-K4", ("ppm_predict_march_kernel",
+                           "ppm_predict_row_kernel", "ctu_corr3_kernel",
                            "ctu_final_kernel", "riemann_fluxdiv_kernel")),
     # before K5-K6: K6's name is a substring of K8's
     ("stencil kernels K7-K8", ("stencil_gsrb_whole_kernel",

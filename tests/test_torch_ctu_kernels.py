@@ -4,7 +4,8 @@ On the CPU each wrapper runs its plain PyTorch twin; the twins are held
 against the Pallas kernels run with interpret=True, on FULL arrays (junk
 edge entries included), at atol 1e-5 for unit-variance f32 inputs.  The
 CUDA kernels are held against the twins on the card by the tests marked
-`cuda`, which skip without one.  On a GPU host without JAX they run with
+`cuda`, which skip without one (K1 bitwise).  On a GPU host without JAX
+they run with
 
     python -m pytest tests/test_torch_ctu_kernels.py -m cuda --noconftest
 """
@@ -138,6 +139,36 @@ def test_launch_counts_count_only_kernel_launches():
     assert ck.launch_counts() == {k.__name__: 0 for k in ck.KERNELS}
 
 
+#: K1's launch shapes: the main paths' padded arrays (512x128x128 3D, the
+#: 640x512 BeamGeneration level in 2D) and the small shapes of the tests
+LAUNCH_SHAPES = [((136, 136, 520), 0, "march", 5),
+                 ((136, 136, 520), 1, "march", 5),
+                 ((136, 136, 520), 2, "row", 520),
+                 ((520, 648), 0, "march", 4),
+                 ((520, 648), 1, "row", 648),
+                 ((5, 7, 9), 0, "march", 3),
+                 ((6, 5), 1, "row", 5),
+                 ((3, 2100), 1, "row", 700),
+                 ((2100, 3), 0, "march", 4)]
+
+
+@pytest.mark.parametrize("shape,ax,route,chunk", LAUNCH_SHAPES)
+def test_ppm_launch_shape(shape, ax, route, chunk):
+    """K1's launch shape is a pure function of the array shape and axis:
+    a row segment of at most ROW_SEG faces along the contiguous axis (whose
+    staging, 4 x ROW_SEG + 16 values, fits the 48 KB of shared memory the
+    kernel may take in f64), else march chunks of at most MARCH_CHUNK[1]
+    faces; only the last chunk of a line may be short, and a line has at
+    most 65,535 chunks."""
+    got = ck.ppm_launch_shape(shape, ax)
+    assert got == (route, chunk)
+    n = shape[ax]
+    nchunk = -(-n // chunk)
+    assert nchunk <= 65535 and (nchunk - 1) * chunk < n <= nchunk * chunk
+    assert chunk <= (ck.ROW_SEG if route == "row" else ck.MARCH_CHUNK[1])
+    assert (4 * ck.ROW_SEG + 16) * 8 <= 48 * 1024
+
+
 # --------------------------------------------------------------------------
 # on the card: the CUDA kernels against their twins on the same tensors
 # --------------------------------------------------------------------------
@@ -191,17 +222,45 @@ def _tensors(x):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_match_twins(cuda_device, dtype):
-    """Full arrays, |kernel - twin| <= 1e-6 max|input| (the kernels are
-    built with -fmad=false and round as the twins do)."""
+    """Full arrays: K1 bitwise equal to its twin, K2-K4 within 1e-6
+    max|input| (the kernels are built with -fmad=false and round as the
+    twins do)."""
     for kern, plain, args, flags in _cuda_cases(cuda_device):
         args = _cast(args, dtype)
         scale = max(float(t.abs().max()) for t in _tensors(args))
         got, want = kern(*args, **flags), plain(*args, **flags)
         assert len(got) == len(want)
+        limit = 0.0 if kern is ck.ppm_predict else 1e-6 * scale
         for g, w in zip(got, want):
             assert g.device.type == "cuda" and g.dtype == dtype
             err = float((g - w).abs().max())
-            assert err <= 1e-6 * scale, (kern.__name__, err)
+            assert err <= limit, (kern.__name__, err)
+
+
+#: K1 on the edges of its two designs: each stencil axis; lines of 5 and 6
+#: cells (every face clamped; a 5-cell line in march chunks of 3 and 2),
+#: 23 and 45 (march chunks of 4 with a short last one, and interior
+#: chunks), 2,100 (three row segments); 2D and 3D
+K1_EDGES = [((5, 6, 7), 0), ((5, 6, 7), 1), ((6, 5, 7), 2), ((7, 6, 5), 2),
+            ((23, 6, 9), 0), ((4, 45, 9), 1), ((3, 4, 45), 2),
+            ((45, 33), 0), ((6, 23), 1), ((5, 5), 0), ((3, 2100), 1),
+            ((2100, 3), 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_edges_match_twin_bitwise(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    for shape, ax in K1_EDGES:
+        s, u = (torch.randn(shape, generator=gen, device=cuda_device,
+                            dtype=dtype) for _ in range(2))
+        for lim in (True, False):
+            args = (s, u, 0.45, ax, lim, 0.2)
+            got, want = ck.ppm_predict(*args), ck.ppm_predict_plain(*args)
+            for g, w in zip(got, want):
+                err = float((g - w).abs().max())
+                assert err == 0.0, (shape, ax, lim, ck.ppm_launch_shape(
+                    shape, ax), err)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,8 @@ The variant chooser of K5 (one launch per smoothing call on levels whose
 ping-pong pair fits one block's shared memory, one per sweep above) is
 checked on the multigrid levels of the lock exchange without JAX.
 The CUDA kernels are held against the twins on the card by the tests marked
-`cuda`, which skip without one: bitwise, in each variant.  On a GPU host without JAX they run with
+`cuda`, which skip without one: bitwise, K5 in each variant.  On a GPU
+host without JAX they run with
 
     python -m pytest tests/test_torch_gsrb_kernels.py -m cuda --noconftest
 """
@@ -384,7 +385,6 @@ def _cuda_compare(case, dtype, device):
     gen = torch.Generator(device=device).manual_seed(5)
     phi, rhs = (torch.randn(grid.shape, generator=gen, device=device,
                             dtype=dtype) for _ in range(2))
-    scale = max(float(phi.abs().max()), float(rhs.abs().max()))
     for alpha, beta in COEFS + [(1.0, -1e-3)]:
         for iters in (1, 3):
             want = gk.gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, iters)
@@ -394,21 +394,73 @@ def _cuda_compare(case, dtype, device):
                 assert got.device.type == "cuda" and got.dtype == dtype
                 assert float((got - want).abs().max()) == 0.0, \
                     (case, iters, variant)
-        got = gk.helm_residual(plan, phi, rhs, alpha, beta)
-        want = gk.helm_residual_plain(plan, phi, rhs, alpha, beta)
-        lim = 1e-6 * max(scale, float(want.abs().max()))
-        assert float((got - want).abs().max()) <= lim, case
+        _residual_bitwise(plan, phi, rhs, alpha, beta, case)
+
+
+def _residual_bitwise(plan, phi, rhs, alpha, beta, case):
+    got = gk.helm_residual(plan, phi, rhs, alpha, beta)
+    want = gk.helm_residual_plain(plan, phi, rhs, alpha, beta)
+    assert got.device.type == "cuda" and got.dtype == phi.dtype
+    assert float((got - want).abs().max()) == 0.0, (case, alpha, beta)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_match_twins(cuda_device, dtype):
-    """Full arrays: K5 bitwise equal to its twin in each variant (the
-    kernels are built with -fmad=false and round as the twins do), K6
-    within 1e-6 max(|input|, |result|)."""
+    """Full arrays: K5 bitwise equal to its twin in each variant and K6
+    bitwise equal to its twin (the kernels are built with -fmad=false and
+    round as the twins do)."""
     for case in list(CASES.values()) + list(EXTRA.values()) \
             + list(MG_LEVELS.values()) + list(AWKWARD.values()):
         _cuda_compare(case, dtype, cuda_device)
+
+
+#: K6 on the edges of its design (tiles of 8 x 32 columns in 3D and 128 in
+#: 2D, marching chunks of planes along the first active axis: one plane a
+#: block on small levels, 4 with a short last chunk on (67, 65, 161)):
+#: levels with interior blocks beside periodic seams, periodic extents 2,
+#: 3 and 5 on every axis, every boundary factor (Dirichlet 2, Neumann 0,
+#: coarse-fine 1, extrapolation 0) on every face, extents that are not
+#: multiples of a tile or a chunk, and levels where every block touches a
+#: boundary
+K6_EDGES = {
+    "interior-and-seams": ((70, 21, 20), (False, True, False), (D, P, N),
+                           (E0, P, C)),
+    "periodic-2-3-5": ((5, 3, 2), (True, True, True), (P, P, P), (P, P, P)),
+    "periodic-3-5-2": ((3, 5, 2), (True, True, True), (P, P, P), (P, P, P)),
+    "periodic-2-5-3": ((2, 5, 3), (True, True, True), (P, P, P), (P, P, P)),
+    "factors-dnc-ced": ((37, 35, 19), (False, False, False), (D, N, C),
+                        (C, E0, D)),
+    "factors-ecd-ndn": ((67, 13, 11), (False, False, False), (E0, C, D),
+                        (N, D, N)),
+    "periodic-march-axis": ((66, 20, 21), (False, False, True), (D, C, P),
+                            (N, E0, P)),
+    "multi-plane-chunks": ((161, 65, 67), (False, True, False), (D, P, N),
+                           (N, P, C)),
+    "all-edge-blocks": ((16, 4, 4), (False, True, False), (N, P, N),
+                        (N, P, N)),
+    "all-edge-8": ((8, 8, 8), (False, False, False), (D, D, N), (N, C, D)),
+    "2d-interior-and-seams": ((300, 45), (True, False), (P, D), (P, N)),
+    "2d-periodic-5-2": ((5, 2), (True, True), (P, P), (P, P)),
+    "2d-periodic-3-130": ((3, 130), (True, True), (P, P), (P, P)),
+    "2d-factors": ((131, 7), (False, False), (C, E0), (D, N)),
+    "2d-all-edge": ((100, 3), (False, True), (D, P), (N, P)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_edges_match_twin_bitwise(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    for name, case in K6_EDGES.items():
+        grid, geo, bcs = _tsetup(case, dtype, cuda_device)
+        plan = gk.make_plan(grid, bcs, geo)
+        assert plan is not None, name
+        phi, rhs = (torch.randn(grid.shape, generator=gen,
+                                device=cuda_device, dtype=dtype)
+                    for _ in range(2))
+        for alpha, beta in COEFS + [(1.0, -1e-3)]:
+            _residual_bitwise(plan, phi, rhs, alpha, beta, name)
 
 
 @pytest.mark.cuda
@@ -421,3 +473,4 @@ def test_cuda_launch_counts(cuda_device):
     gk.gsrb_sweeps(plan, phi, phi, 0.0, 1.0, 3, variant="tiled")
     gk.helm_residual(plan, phi, phi, 0.0, 1.0)
     assert gk.launch_counts() == {"gsrb_sweeps": 4, "helm_residual": 1}
+    assert gk.helm_residual.launches_by_shape == {tuple(grid.shape): 1}
