@@ -61,19 +61,42 @@ non-zero:
      through entry.run (20 steps), checked for finite fields, max|u| <=
      10 U0, solves that reduce their residual, and launches of K1, K3, K4,
      K7 and K8; V-cycles and residuals of every projection; then 3 timed
-     samples of 3 steps.
+     samples of 3 steps;
+ 10. D1: main path 1 as an input deck (D1_DECK) through ProblemContext
+     and RunDriver: its NSParams, grid, problem and map equal to
+     entry.build_level(512, 128, 128)'s; 20 steps with plot and checkpoint
+     files every 10, the state equal to main path 1's after its 20 steps
+     (max|diff| <= 1e-6 max|field|, expected 0.0); then a second RunDriver
+     resumed from chkpt_000010.hdf5 to step 20, equal to the first; the
+     driver's ms/step beside path 1's, host reads per step, cell-updates/s,
+     the seconds of one checkpoint and one plot file, peak memory, the
+     launches of K1-K4.  Without h5py on the host the files' trees are
+     kept in memory by path (MemoryFiles; printed);
+ 11. D2: the same deck with amr.updateScheme = 2 (RK3), 5 steps: finite
+     fields, the buoyancy and energy bounds, the last MAC projection's
+     max|div|, 3 timed steps with launches per step (K1-K3, no K4); the
+     deck at 64x16x32 and a fixed dt on the card against the CPU (1e-4
+     of max|field|);
+ 12. D3: main path 3 as an input deck (D3_DECK), 3 steps through
+     RunDriver, its setup and metric equal to entry.build_beam_level(640,
+     512)'s and its state to main path 3's after 3 steps (1e-6);
+ 13. the command line, `python -m somar_tpu_torch <deck> amr.maxsteps=2`,
+     in a subprocess on a 128x32 lock exchange: exit 0 and "finished 2
+     steps".
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -569,7 +592,7 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     and read just after (every counted kernel must have been launched).
     Returns (launches of the run, launches per timed step, ms/step, {kernel:
     {level shape: launches per timed step}} of the kernels that count by
-    level)."""
+    level, (the level, the state at the end of the run))."""
     from somar_tpu_torch.solvers.host_reads import read_scalars
     level, grid = entry.build_level(nx=nx, nz=nz, ny=ny, device=device,
                                     **level_kw)
@@ -588,6 +611,7 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
     state = entry.run(level, state, nsteps, on_step=on_step)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    run_state = state
     launches = {}
     for mod in counters:
         launches.update(mod.launch_counts())
@@ -656,7 +680,7 @@ def main_path(torch, entry, counters, device, smi="", label="spectral",
         f" launches/step={json.dumps(per_step)}"
         f" max|div| of the projected advecting velocity="
         f"{float(diag['max_mac_div']):.3e} on {smi}")
-    return launches, per_step, ms, by_level
+    return launches, per_step, ms, by_level, (level, run_state)
 
 
 # --------------------------------------------------------------------------
@@ -951,7 +975,8 @@ SOLVE_FAIL_RELRES = 1e-3
 def beam_path(torch, entry, counters, device, smi="", nx=640, nz=512,
               nsteps=20, samples=3, sample_steps=3):
     """Drive the BeamGeneration level through entry.run and check it.
-    Returns (launches of the run, launches per timed step, ms/step)."""
+    Returns (launches of the run, launches per timed step, ms/step, (the
+    level, the state after D3_STEPS steps of the run))."""
     from somar_tpu_torch.solvers.host_reads import read_scalars
     t0 = time.perf_counter()
     level, grid = entry.build_beam_level(nx, nz, device=device)
@@ -962,10 +987,12 @@ def beam_path(torch, entry, counters, device, smi="", nx=640, nz=512,
         f"{[op._stencil_plan.K if op._stencil_plan else None for op in level.projector.mg.ops]}")
     eps = level.params.mg.eps
     u0 = entry.BEAM_TIDAL_U0
-    rows = []
+    rows, early = [], []
 
     def on_step(i, s, dt):
         rows.append((i, dt, dict(level.projector.last_info)))
+        if i == D3_STEPS - 1:
+            early.append(s)
 
     torch.cuda.reset_peak_memory_stats()
     for mod in counters:
@@ -1033,8 +1060,433 @@ def beam_path(torch, entry, counters, device, smi="", nx=640, nz=512,
         f" K7 launches/step={per_step['stencil_gsrb_sweeps']:.1f}"
         f" K8 launches/step={per_step['stencil_helm_residual']:.1f}"
         f" max|div| after the CC projection={div:.3e} on {smi}")
-    return launches, per_step, ms
+    return launches, per_step, ms, (level, early[0])
 
+
+# --------------------------------------------------------------------------
+# phases 10-13: input decks through ProblemContext, RunDriver and the CLI
+# --------------------------------------------------------------------------
+#: D1, the lock exchange of main path 1 as an input deck: every key that
+#: makes the context's NSParams equal entry.build_level(512, 128, 128)'s
+#: (the context's multigrid defaults, imin 5 and 2 smoothings, and its
+#: single initial projection and pressure iterations differ from the
+#: port's MGParams and entry.run)
+D1_DECK = """
+amr.nx = 512 128 128
+amr.length = 15 2 2
+amr.nx_offset = -256 0 0
+amr.isPeriodic = 0 1 0
+ibc.problem = 1
+amr.gravityMethod = 1
+amr.cfl = 0.9
+amr.viscosity = 1e-4
+amr.scal_diffusion_coeffs = 1e-4
+advection.useLimitingVel = 0
+advection.useLimitingScal = 1
+projection.initial_projection_iters = 2
+projection.initial_pressure_iters = 2
+AMRMG.imin = 2
+AMRMG.num_smooth_down = 4
+AMRMG.num_smooth_up = 4
+AMRMG.num_smooth_bottom = 4
+amr.maxsteps = 20
+amr.final = 1e9
+plot.plot_interval = 10
+plot.checkpoint_interval = 10
+amr.verbosity = 0
+"""
+#: D2, the same deck with the RK3 scheme, and its card-against-CPU size
+D2_DECK = D1_DECK + """
+amr.updateScheme = 2
+amr.maxsteps = 5
+plot.plot_interval = -1
+plot.checkpoint_interval = -1
+"""
+#: at 64x16x32 the deck's first dt (a tenth of the viscous limit) is 0.59,
+#: far past the stable RK3 step of a grid that coarse, so the card and the
+#: CPU take a fixed dt there, as the PPM step parity does
+D2_SMALL = "amr.nx = 64 16 32\namr.nx_offset = -32 0 0\namr.fixed_dt = 0.01\n"
+D2_TIMED_STEPS = 3
+#: D3, the BeamGeneration level of main path 3 as an input deck, with the
+#: entry.BEAM_* stand-ins as keys (the problem fixes N^2 = 1.493e-5)
+D3_STEPS = 3
+D3_DECK = """
+amr.nx = 640 512
+amr.length = 38400 3000
+amr.nx_offset = -320 0
+geometry.coordMap = 2
+geometry.beamGenMapAlpha = 15
+ibc.problem = 2
+ibc.useBackgroundScalar = 1
+ibc.bgScalarProfile = 1
+ibc.tidalU0 = 0.01
+ibc.tidalOmega = 1e-3
+amr.viscosity = 1e-4
+amr.scal_diffusion_coeffs = 1e-4
+amr.gravityMethod = 2
+amr.gravityTheta = 0.6
+amr.limitDtViaInternalWaveSpeed = 1
+AMRMG.eps = 1e-6
+AMRMG.imax = 20
+AMRMG.relax_mode = 1
+AMRMG.imin = 2
+AMRMG.num_smooth_down = 4
+AMRMG.num_smooth_up = 4
+AMRMG.num_smooth_bottom = 4
+projection.initial_projection_iters = 2
+projection.initial_pressure_iters = 2
+amr.maxsteps = 3
+amr.final = 1e30
+amr.verbosity = 0
+"""
+#: the command line's deck: a small 2D lock exchange
+CLI_DECK = """
+amr.nx = 128 32
+amr.length = 15 2
+amr.nx_offset = -64 0
+ibc.problem = 1
+amr.viscosity = 1e-4
+amr.scal_diffusion_coeffs = 1e-4
+amr.max_dt = 0.05
+amr.final = 100
+plot.plot_interval = 1
+plot.checkpoint_interval = 1
+"""
+#: the state equality of a deck's run and entry.run's: max|diff| within
+#: this fraction of max|field| (expected 0.0: the same code on one card)
+DRIVER_RTOL = 1e-6
+D2_CPU_RTOL = 1e-4
+#: the fields held to D2_CPU_RTOL, as in the PPM step parity; the
+#: projection potentials are increments, small against their roundoff
+D2_CPU_FIELDS = ("vel", "scalars", "lam", "pressure")
+#: the last MAC projection's max|div| against max_d max|u_d| / dx_d
+MAC_DIV_RTOL = 1e-5
+STATE_DIFF_FIELDS = ("vel", "scalars", "lam", "mac_phi", "cc_phi",
+                     "pressure", "e_lambda", "time")
+
+
+class MemoryFiles:
+    """The h5py layer of io/checkpoint.py kept in memory, for a host
+    without h5py: write_tree / read_tree hold each file's tree by path.
+    Every device computation and kernel launch is the same; only the file
+    bytes are not written."""
+
+    def __init__(self):
+        self.trees = {}
+
+    def write_tree(self, path, tree):
+        self.trees[os.path.abspath(path)] = tree
+
+    def read_tree(self, path):
+        return self.trees[os.path.abspath(path)]
+
+
+#: the command line run with MemoryFiles in place of h5py
+CLI_SHIM = """import runpy, sys
+from somar_tpu_torch.io import checkpoint
+trees = {}
+checkpoint.write_tree = trees.__setitem__
+checkpoint.read_tree = trees.__getitem__
+runpy.run_module("somar_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def file_layer():
+    """None where h5py imports (the decks write real files into temporary
+    directories), else MemoryFiles installed in io/checkpoint.py."""
+    try:
+        import h5py  # noqa: F401
+        say("files: h5py is installed; the decks write HDF5 files")
+        return None
+    except ImportError:
+        from somar_tpu_torch.io import checkpoint
+        mem = MemoryFiles()
+        checkpoint.write_tree = mem.write_tree
+        checkpoint.read_tree = mem.read_tree
+        say("files: h5py is not installed on this host, so chip_smoke keeps "
+            "each checkpoint and plot file's tree in memory by path "
+            "(io/checkpoint.write_tree / read_tree); every device "
+            "computation and kernel launch is the same")
+        return mem
+
+
+def resolved_params(p):
+    """NSParams with every per-solver multigrid block that is None (and so
+    falls back to p.mg) replaced by p.mg."""
+    return dataclasses.replace(p, **{
+        f: getattr(p, f) or p.mg
+        for f in ("mg_mac", "mg_cc", "mg_viscous", "mg_diffusive")})
+
+
+def context(deck):
+    from somar_tpu_torch.config.context import ProblemContext
+    from somar_tpu_torch.config.parmparse import ParmParse
+    return ProblemContext.from_parmparse(ParmParse.from_string(deck))
+
+
+def same_setup(ctx, level, label):
+    """Raise unless the context builds the level's run: NSParams field by
+    field, the grid, the problem and the coordinate map."""
+    def fields(obj):
+        return {k: (fields(v) if hasattr(v, "__dict__") else v)
+                for k, v in vars(obj).items()}
+    checks = {
+        "NSParams": resolved_params(ctx.ns) == resolved_params(level.params),
+        "grid": ctx.base_grid() == level.grid,
+        "problem": (type(ctx.new_problem()) is type(level.problem)
+                    and fields(ctx.new_problem()) == fields(level.problem)),
+        "map": (type(ctx.new_geo_source()) is type(level.geo.geo)
+                and vars(ctx.new_geo_source()) == vars(level.geo.geo)),
+    }
+    say(f"{label} deck against the entry level: "
+        + " ".join(f"{k}={'equal' if v else 'DIFFERENT'}"
+                   for k, v in checks.items()))
+    if not all(checks.values()):
+        raise PhaseError(f"{label}: the deck does not build the entry level")
+
+
+def field_diffs(a, b, fields=STATE_DIFF_FIELDS):
+    """{field: max|a - b| / max|b|} of two NSStates."""
+    rel = {}
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f).to(getattr(a, f).device)
+        rel[f] = float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                  1e-30)
+    return rel
+
+
+def state_diff(a, b, fields=STATE_DIFF_FIELDS):
+    """(max over fields of max|a - b| / max|b|, its field)."""
+    rel = field_diffs(a, b, fields)
+    field = max(rel, key=rel.get)
+    return rel[field], field
+
+
+def reset_counts(counters):
+    for mod in counters:
+        mod.reset_launch_counts()
+
+
+def read_counts(counters):
+    out = {}
+    for mod in counters:
+        out.update(mod.launch_counts())
+    return out
+
+
+def check_launched(launches, path, label):
+    if not all(launches[k] > 0 for k in path):
+        raise PhaseError(f"{label}: a kernel of the path was never launched "
+                         f"{json.dumps(launches)}")
+
+
+def driver_run(torch, ctx, out_dir, device, counters):
+    """Run a deck through RunDriver with the counts set to 0 just before;
+    returns (driver, state, steps, launches, host reads per step between
+    step ends, seconds)."""
+    from somar_tpu_torch.driver import RunDriver
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    from somar_tpu_torch.utils.timers import timer
+    timer.reset()
+    drv = RunDriver(ctx, out_dir=out_dir, device=device)
+    marks = []
+    drv.scheduler.schedule(lambda *_: marks.append(read_scalars.count),
+                           step_interval=1)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    state, steps = drv.run(verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    reads = ((marks[-1] - marks[0]) / (len(marks) - 1) if len(marks) > 1
+             else float("nan"))
+    return drv, state, steps, read_counts(counters), reads, seconds
+
+
+def io_seconds(name):
+    from somar_tpu_torch.utils.timers import timer
+    node = timer.root.children.get(name)
+    return (node.total / node.calls, node.calls) if node else (None, 0)
+
+
+def driver_lock(torch, counters, device, smi, path1, ms_path1, files):
+    """D1: the lock exchange deck through RunDriver (20 steps, plot and
+    checkpoint files every 10), held to main path 1's state; then resumed
+    from its step-10 checkpoint and held to its own state."""
+    level1, want = path1
+    ctx = context(D1_DECK)
+    same_setup(ctx, level1, "D1")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d1_") as out:
+        torch.cuda.reset_peak_memory_stats()
+        drv, state, steps, launches, reads, secs = driver_run(
+            torch, ctx, out, device, counters)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_s, ckpts = io_seconds("write_checkpoint")
+        plot_s, plots = io_seconds("write_plotfile")
+        err, field = state_diff(state, want)
+        ms = 1e3 * statistics.median(drv.step_seconds)
+        say(f"D1 RunDriver {ctx.base_grid().nx} {steps} steps in {secs:.2f} "
+            f"s (with set-up and files): state against main path 1 "
+            f"max|diff|/max|field|={err:.3e} ({field}) limit {DRIVER_RTOL}; "
+            f"ms/step={ms:.3f} (advance + time and dt reads; main path 1 "
+            f"through entry.run {ms_path1:.3f}) host reads/step={reads:.1f} "
+            f"cell-updates/s={drv.cell_updates / drv.elapsed:.4e} (the "
+            f"driver's report, files included) checkpoint write "
+            f"{ckpt_s:.3f} s x{ckpts} plot file write {plot_s:.3f} s "
+            f"x{plots} peak_mem_bytes={peak} launches={json.dumps(launches)}"
+            f" on {smi}")
+        if not err <= DRIVER_RTOL:
+            raise PhaseError("D1: the deck's run differs from entry.run's")
+        if steps != 20:
+            raise PhaseError(f"D1 ran {steps} steps")
+        check_launched(launches, ("ppm_predict", "ctu_corr3", "ctu_final",
+                                  "riemann_fluxdiv"), "D1")
+        resumed = context(D1_DECK + "amr.restart_file = chkpt_000010.hdf5\n")
+        drv2, state2, steps2, _, _, _ = driver_run(torch, resumed, out,
+                                                   device, counters)
+        err2, field2 = state_diff(state2, state)
+        say(f"D1 resumed from chkpt_000010.hdf5 to step {steps2}: against "
+            f"the uninterrupted run max|diff|/max|field|={err2:.3e} "
+            f"({field2}) limit {DRIVER_RTOL}")
+        if not (steps2 == 20 and err2 <= DRIVER_RTOL):
+            raise PhaseError("D1: the resumed run differs")
+    if files is not None:
+        files.trees.clear()
+    return launches
+
+
+def driver_rk3(torch, counters, device, smi):
+    """D2: the lock exchange deck with the RK3 scheme through RunDriver (5
+    steps), its gates, timed steps with launches per step, and the same
+    deck at 64x16x32 on the card against the CPU."""
+    from somar_tpu_torch.driver import RunDriver
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    ctx = context(D2_DECK)
+    if ctx.ns.update_scheme != "rk3":
+        raise PhaseError("D2: amr.updateScheme = 2 did not select RK3")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d2_") as out:
+        drv, state, steps, launches, _, secs = driver_run(
+            torch, ctx, out, device, counters)
+    level = drv.level
+    b = state.scalars[0]
+    finite = all(bool(torch.isfinite(getattr(state, f)).all())
+                 for f in ("vel", "scalars", "lam", "pressure"))
+    bmin, bmax = float(b.min()), float(b.max())
+    dt = level.compute_dt(state)
+    e0 = float(level.total_energy(state))
+    reset_counts(counters)
+    reads0 = read_scalars.count
+    times, energies = [], []
+    diag = {}
+    for k in range(D2_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = level.advance(state, dt * (1.0 + 1e-6 * (k + 1)),
+                              diag=diag if k == D2_TIMED_STEPS - 1 else None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        energies.append(float(level.total_energy(state)))
+    per_step = {n: c / D2_TIMED_STEPS
+                for n, c in read_counts(counters).items()}
+    solver_reads = (read_scalars.count - reads0) / D2_TIMED_STEPS
+    scale = max(float(state.vel[d].abs().max()) / level.grid.dx[d]
+                for d in range(level.grid.ndim))
+    mac_div = float(diag["max_mac_div"])
+    ms = 1e3 * statistics.median(times)
+    say(f"D2 RunDriver RK3 {ctx.base_grid().nx} {steps} steps in {secs:.2f} "
+        f"s (with set-up): b in [{bmin:.6f}, {bmax:.6f}] finite={finite} "
+        f"launches={json.dumps(launches)}; then {D2_TIMED_STEPS} timed "
+        f"steps: ms/step={ms:.3f} samples="
+        + ",".join(f"{1e3 * t:.3f}" for t in times)
+        + f" E={e0:.6f}->{max(energies):.6f} max|div| after the last MAC "
+        f"projection={mac_div:.3e} (limit {MAC_DIV_RTOL} x {scale:.3e}) "
+        f"solver host reads/step={solver_reads:.1f} launches/step="
+        f"{json.dumps(per_step)} on {smi}")
+    if not finite:
+        raise PhaseError("D2: non-finite state")
+    if not (B_BOUNDS[0] < bmin and bmax < B_BOUNDS[1]):
+        raise PhaseError(f"D2: buoyancy out of {B_BOUNDS}")
+    if max(energies) > e0 * (1.0 + ENERGY_GROWTH):
+        raise PhaseError("D2: total energy grew")
+    if not mac_div <= MAC_DIV_RTOL * scale:
+        raise PhaseError("D2: the MAC projection left a divergence")
+    check_launched(launches, ("ppm_predict", "ctu_corr3", "ctu_final"), "D2")
+    if launches["riemann_fluxdiv"] != 0:
+        raise PhaseError("D2: RK3 launched K4")
+
+    small = context(D2_DECK + D2_SMALL)
+    got = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d2s_") as out:
+        for dev in ("cpu", device):
+            got[dev], n = RunDriver(small, out_dir=out, device=dev).run(
+                verbose=False)
+    rel = field_diffs(got[device], got["cpu"])
+    err = max(rel[f] for f in D2_CPU_FIELDS)
+    say(f"D2 RK3 card against CPU {small.base_grid().nx} {n} steps: "
+        f"max|diff|/max|field| " + " ".join(
+            f"{f}={e:.3e}" for f, e in rel.items())
+        + f"; limit {D2_CPU_RTOL} on {', '.join(D2_CPU_FIELDS)}")
+    if not err <= D2_CPU_RTOL:
+        raise PhaseError("D2: the card's RK3 run differs from the CPU's")
+    return {"launches": launches, "per_step": per_step}
+
+
+def driver_beam(torch, counters, device, smi, path3, files):
+    """D3: the BeamGeneration deck through RunDriver (3 steps), held to
+    main path 3's state after as many steps."""
+    level3, want = path3
+    ctx = context(D3_DECK)
+    same_setup(ctx, level3, "D3")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d3_") as out:
+        torch.cuda.reset_peak_memory_stats()
+        drv, state, steps, launches, reads, secs = driver_run(
+            torch, ctx, out, device, counters)
+        peak = torch.cuda.max_memory_allocated()
+    geo_same = all(torch.equal(getattr(drv.level.geo, f),
+                               getattr(level3.geo, f))
+                   for f in ("J", "Jinv", "e_cc", "einv_cc", "gdn_cc"))
+    err, field = state_diff(state, want)
+    ms = 1e3 * statistics.median(drv.step_seconds)
+    say(f"D3 RunDriver beam {ctx.base_grid().nx} {steps} steps in "
+        f"{secs:.2f} s (with set-up): metric equal to the entry level's="
+        f"{geo_same}; state against main path 3 after {D3_STEPS} steps "
+        f"max|diff|/max|field|={err:.3e} ({field}) limit {DRIVER_RTOL}; "
+        f"ms/step={ms:.3f} host reads/step={reads:.1f} peak_mem_bytes="
+        f"{peak} launches={json.dumps(launches)} on {smi}")
+    if not (geo_same and steps == D3_STEPS and err <= DRIVER_RTOL):
+        raise PhaseError("D3: the deck's run differs from entry.run's")
+    check_launched(launches, ("ppm_predict", "ctu_final", "riemann_fluxdiv",
+                              "stencil_gsrb_sweeps",
+                              "stencil_helm_residual"), "D3")
+    if files is not None:
+        files.trees.clear()
+    return launches
+
+
+def cli_phase(device, files, options=()):
+    """The command line in a subprocess on the card: a small 2D deck, two
+    steps (`options` go before the deck)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as out:
+        deck = os.path.join(out, "inputs.lock2d")
+        with open(deck, "w") as f:
+            f.write(CLI_DECK)
+        args = list(options) + [deck, "amr.maxsteps=2"]
+        cmd = ([sys.executable, "-m", "somar_tpu_torch"] if files is None
+               else [sys.executable, "-c", CLI_SHIM]) + args
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=out, env=env, capture_output=True,
+                              text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    say(f"CLI python -m somar_tpu_torch {' '.join(args)} on {device}"
+        f"{'' if files is None else ' (files kept in memory)'}: exit "
+        f"{proc.returncode} in {secs:.1f} s, last line {tail[0]!r}")
+    if proc.returncode != 0 or "finished 2 steps" not in proc.stdout:
+        say(proc.stderr[-3000:])
+        raise PhaseError("the command line did not finish its deck")
 
 
 def main() -> int:
@@ -1063,6 +1515,7 @@ def main() -> int:
     gk.load()
     sgk.load()
     say(f"build: {time.perf_counter() - t0:.2f} s")
+    files = file_layer()
     for name in (ck.LIBRARY[0], gk.LIBRARY[0], sgk.LIBRARY[0]):
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -1090,14 +1543,22 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         raise PhaseError("TF32 is on: the levels' spectral solvers switch "
                          "it off")
-    launches, _, _, _ = main_path(torch, entry, (ck,), device, smi)
-    launches_mg, per_step_mg, _, by_level_mg = main_path(
+    launches, _, ms_path1, _, path1 = main_path(torch, entry, (ck,), device,
+                                                smi)
+    d1 = driver_lock(torch, (ck, gk, sgk), device, smi, path1, ms_path1,
+                     files)
+    del path1
+    launches_mg, per_step_mg, _, by_level_mg, _ = main_path(
         torch, entry, (ck, gk), device, smi, label="multigrid", nsteps=10,
         sample_steps=5, pressure_solver="mg", mg=mg)
     ig_solve_parity(torch, entry, device)
     beam_step_parity(torch, entry, device)
-    launches_beam, per_step_beam, _ = beam_path(torch, entry, (ck, gk, sgk),
-                                                device, smi)
+    d2 = driver_rk3(torch, (ck, gk, sgk), device, smi)
+    launches_beam, per_step_beam, _, path3 = beam_path(
+        torch, entry, (ck, gk, sgk), device, smi)
+    d3 = driver_beam(torch, (ck, gk, sgk), device, smi, path3, files)
+    del path3
+    cli_phase(device, files)
 
     k6_levels = {}
     for shape, (ms, plain, dev) in k6_times.items():
@@ -1145,6 +1606,9 @@ def main() -> int:
                           ms=timing[name][0], plain_ms=timing[name][1],
                           device_ms=timing[name][2])
         entry_.update(
+            launches_d1=d1[name], launches_d2=d2["launches"][name],
+            launches_per_rk3_step=d2["per_step"][name],
+            launches_d3=d3[name],
             launches_multigrid_path=launches_mg.get(name, 0),
             launches_per_multigrid_step=per_step_mg.get(name, 0.0),
             launches_beam_path=launches_beam.get(name, 0),

@@ -15,8 +15,9 @@ elliptic solves see the full Jgup coupling.
 Depth profiles:
   * LedgeMap         shelf-break transition hl -> hr;
   * BeamGeneratorMap smoothed critical-slope ridge for internal-tide beam
-    generation.
-The measured-bathymetry map (DEMMap, an HDF5 reader) is not ported yet.
+    generation;
+  * DEMMap           measured bathymetry, spline-interpolated from an HDF5
+    file of X[/Y]/Depth vectors.
 """
 
 from __future__ import annotations
@@ -207,3 +208,77 @@ class BeamGeneratorMap(BathymetricMap):
             return np.zeros_like(x)
         h = 1.0e-6 * max(self.half_width, 1.0)
         return -(self._elevation(x + h) - self._elevation(x - h)) / (2.0 * h)
+
+
+class DEMMap(BathymetricMap):
+    """Measured bathymetry interpolated with cubic splines (or linearly):
+    scipy's CubicSpline / RegularGridInterpolator, evaluated on the host at
+    set-up."""
+
+    name = "DEM"
+
+    def __init__(self, vert_domain, x: np.ndarray, depth_samples: np.ndarray,
+                 y: np.ndarray | None = None, min_depth_frac: float = 0.01,
+                 interp_order: int = 1, **kw):
+        """interp_order is geometry.Interpolation_Order: 0 = (bi)linear,
+        > 0 = cubic."""
+        super().__init__(vert_domain, **kw)
+        from scipy.interpolate import (CubicSpline, interp1d,
+                                       RegularGridInterpolator)
+
+        # floor the depth: measured bathymetry can run to zero (shoreline),
+        # which would collapse terrain-following columns to zero thickness
+        # (J -> 0); clamp to a fraction of the vertical extent
+        self.min_depth = float(min_depth_frac) * self.H
+        x = np.asarray(x, dtype=np.float64)
+        dep = np.maximum(np.asarray(depth_samples, dtype=np.float64),
+                         self.min_depth)
+        cubic = int(interp_order) > 0
+        if y is None:
+            if cubic:
+                self._interp = CubicSpline(x, dep, bc_type="natural",
+                                           extrapolate=True)
+                self._interp_dx = self._interp.derivative()
+            else:
+                self._interp = interp1d(x, dep, kind="linear",
+                                        bounds_error=False,
+                                        fill_value=(dep[0], dep[-1]))
+                self._interp_dx = None
+            self._is2d = False
+        else:
+            y = np.asarray(y, dtype=np.float64)
+            self._rgi = RegularGridInterpolator(
+                (x, y), dep, method="cubic" if cubic else "linear",
+                bounds_error=False, fill_value=None
+            )
+            self._is2d = True
+
+    @classmethod
+    def from_hdf5(cls, vert_domain, path: str, ndim: int, **kw):
+        """Reads a DEM file of X[/Y]/Depth vectors; a 3D depth stored
+        (ny, nx) is transposed to the (x, y) grid order.  h5py is imported
+        here, so the package imports without it."""
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            x = np.asarray(f["X"])
+            dep = np.asarray(f["Depth"])
+            y = np.asarray(f["Y"]) if ndim == 3 and "Y" in f else None
+        if y is not None and dep.shape == (y.size, x.size):
+            dep = dep.T
+        return cls(vert_domain, x, dep, y=y, **kw)
+
+    def depth(self, xh):
+        if not self._is2d:
+            d = self._interp(np.asarray(xh[0], dtype=np.float64))
+            return np.maximum(d, self.min_depth)
+        x = np.asarray(xh[0], dtype=np.float64)
+        y = np.asarray(xh[1], dtype=np.float64)
+        bx, by = np.broadcast_arrays(x, y)
+        pts = np.stack([bx.ravel(), by.ravel()], axis=-1)
+        return np.maximum(self._rgi(pts).reshape(bx.shape), self.min_depth)
+
+    def depth_grad(self, xh, d):
+        if not self._is2d and d == 0 and self._interp_dx is not None:
+            return self._interp_dx(np.asarray(xh[0], dtype=np.float64))
+        return super().depth_grad(xh, d)

@@ -126,6 +126,14 @@ class LevelGeometry:
         return tuple(
             np.asarray(self.geo.phys_coor(mu, xi)) for mu in range(self.ndim))
 
+    def displacement_cc(self) -> np.ndarray:
+        """x(xi) - xi at CC, (ndim,)+shape host numpy (for plot files)."""
+        xi = self.grid.coords()
+        return np.stack([
+            np.broadcast_to(np.asarray(self.geo.phys_coor(mu, xi)) - xi[mu],
+                            self.grid.shape)
+            for mu in range(self.ndim)])
+
 
 def require_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device that is not there raises

@@ -171,3 +171,70 @@ def cc_gradient(phi, geo: LevelGeometry, bcs: FieldBCs):
     fluxes = mac_gradient(phi, geo, bcs)
     return torch.stack([fc_to_cc(fluxes[d], d, grid) * geo.Jinv
                         for d in range(grid.ndim)])
+
+
+# --------------------------------------------------------------------------
+# CC divergence of a CC (Cartesian-basis) velocity: diagnostics
+# --------------------------------------------------------------------------
+def cc_divergence(vel_cart, geo: LevelGeometry,
+                  bcs_per_comp: Sequence[FieldBCs]):
+    """div u = (1/J) d_d (J u^d) with u^d = einv . u_cart, by CC central
+    differences (diagnostic quality; the solvers use mac_divergence)."""
+    grid = geo.grid
+    u_mapped = geo.to_mapped(vel_cart)
+    out = None
+    for d in range(grid.ndim):
+        ax = grid.axis(d)
+        ng = [0] * grid.ndim
+        ng[d] = 1
+        f = fill_ghosts_cc(geo.mult_by_J(u_mapped[d]), grid, bcs_per_comp[d],
+                           ng)
+        term = (slc(f, ax, 2, None) - slc(f, ax, 0, -2)) / (2.0 * grid.dx[d])
+        out = term if out is None else out + term
+    return out * geo.Jinv
+
+
+# --------------------------------------------------------------------------
+# vorticity
+# --------------------------------------------------------------------------
+def _cc_phys_derivs(f, geo: LevelGeometry, bcs: FieldBCs):
+    """Physical-space gradient d f / d x_k at CC via the chain rule."""
+    grid = geo.grid
+    p = fill_ghosts_cc(f, grid, bcs, 1)
+    dxi = []
+    for j in range(grid.ndim):
+        pj = p
+        for k in range(grid.ndim):
+            if k != j:
+                pj = slc(pj, grid.axis(k), 1, -1)
+        axj = grid.axis(j)
+        dxi.append((slc(pj, axj, 2, None) - slc(pj, axj, 0, -2))
+                   / (2.0 * grid.dx[j]))
+    if geo.einv_cc is None:
+        return torch.stack(dxi)  # d f / d xi_j
+    # d f / d x_k = sum_j (d f / d xi_j) (d xi_j / d x_k), summed in j
+    # order as an elementwise sum (no matrix product, so no TF32)
+    e = geo.einv_cc
+    out = []
+    for k in range(grid.ndim):
+        acc = e[0, k] * dxi[0]
+        for j in range(1, grid.ndim):
+            acc = acc + e[j, k] * dxi[j]
+        out.append(acc)
+    return torch.stack(out)
+
+
+def vorticity(vel_cart, geo: LevelGeometry,
+              bcs_per_comp: Sequence[FieldBCs]):
+    """2D: scalar omega = dv/dx - du/dz (the two in-plane dirs);
+    3D: 3-component curl of the Cartesian velocity."""
+    ndim = geo.grid.ndim
+    # grads[m][k] = d u_m / d x_k
+    grads = [_cc_phys_derivs(vel_cart[m], geo, bcs_per_comp[m])
+             for m in range(ndim)]
+    if ndim == 2:
+        return grads[1][0] - grads[0][1]
+    wx = grads[2][1] - grads[1][2]
+    wy = grads[0][2] - grads[2][0]
+    wz = grads[1][0] - grads[0][1]
+    return torch.stack([wx, wy, wz])

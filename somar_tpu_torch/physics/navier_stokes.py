@@ -20,10 +20,12 @@ dt as a Python float, so no kernel argument forces a device sync;
 `compute_dt` is one host read per step; the iterative solvers add one per
 V-cycle and one per BiCGStab iteration (solvers/host_reads.py).
 
+With update_scheme = "rk3" the step is the SSP-RK3 method of lines of
+physics/rk3.py instead.
+
 Uniform Cartesian levels run with spectral, multigrid or BiCGStab
 pressure solves and spectral or multigrid heat solves; mapped levels with
-multigrid.  The RK3 scheme and time-dependent BCs raise
-NotImplementedError.
+multigrid.  Time-dependent BCs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from somar_tpu_torch.physics.godunov import (
     ADVECT_GROW, AdvectionParams, _crop_faces, divergence_from_partials,
     flux_divergence, momentum_flux_divergence, pad_valid_faces,
     riemann_from_states, trace_face_states)
+from somar_tpu_torch.physics.rk3 import advance_rk3
 from somar_tpu_torch.problems.base import Problem, sponge_ramp, tidal_source
 from somar_tpu_torch.projection.altered_metric import AlteredMetric
 from somar_tpu_torch.projection.projector import LevelProjector
@@ -127,10 +130,9 @@ class NSLevel:
 
     def __init__(self, geo: LevelGeometry, problem: Problem,
                  params: NSParams = NSParams()):
-        if params.update_scheme != "ppm":
-            raise NotImplementedError(
-                f"update_scheme={params.update_scheme!r} is ported in "
-                "slice 5, see ROADMAP")
+        if params.update_scheme not in ("ppm", "rk3"):
+            raise ValueError(f"update_scheme={params.update_scheme!r}: "
+                             "use 'ppm' or 'rk3'")
         self.geo = geo
         self.grid = geo.grid
         self.problem = problem
@@ -488,10 +490,14 @@ class NSLevel:
     # ------------------------------------------------------------ advance
     def advance(self, state: NSState, dt: float,
                 diag: Optional[dict] = None) -> NSState:
-        """One PPM predictor-corrector time step of length dt (a Python
-        float).  A dict passed as `diag` receives "max_mac_div", the max
-        |divergence| of the projected advecting velocity (a 0-d tensor)."""
+        """One time step of length dt (a Python float): the PPM
+        predictor-corrector, or the RK3 scheme when update_scheme = "rk3".
+        A dict passed as `diag` receives "max_mac_div", the max
+        |divergence| of the projected advecting velocity (a 0-d tensor; of
+        the last stage's under RK3)."""
         p = self.params
+        if p.update_scheme == "rk3":
+            return advance_rk3(self, state, dt, diag=diag)
         grid = self.grid
         ndim = grid.ndim
         dt = float(dt)

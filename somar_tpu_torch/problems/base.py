@@ -59,6 +59,33 @@ class LinearProfile(BackgroundProfile):
         return self.slope * np.ones_like(z)
 
 
+class QuadraticProfile(BackgroundProfile):
+    """bbar = b0 + c1 z + c2 z^2."""
+
+    def __init__(self, b0=0.0, c1=-1.0, c2=0.0):
+        self.b0, self.c1, self.c2 = map(float, (b0, c1, c2))
+
+    def value(self, z):
+        return self.b0 + self.c1 * z + self.c2 * z * z
+
+    def deriv(self, z):
+        return self.c1 + 2.0 * self.c2 * z
+
+
+class TanhProfile(BackgroundProfile):
+    """bbar = b0 - 0.5*db*tanh((z - z0)/delta): a pycnocline."""
+
+    def __init__(self, b0=0.5, db=1.0, z0=-0.5, delta=0.1):
+        self.b0, self.db, self.z0, self.delta = map(float, (b0, db, z0, delta))
+
+    def value(self, z):
+        return self.b0 - 0.5 * self.db * np.tanh((z - self.z0) / self.delta)
+
+    def deriv(self, z):
+        sech2 = 1.0 / np.cosh((z - self.z0) / self.delta) ** 2
+        return -0.5 * self.db / self.delta * sech2
+
+
 # --------------------------------------------------------------------------
 # Sponge layers
 # --------------------------------------------------------------------------

@@ -1,13 +1,15 @@
-"""Where the time of the port's PPM step goes on one GPU.
+"""Where the time of the port's step goes on one GPU.
 
     python3 -m somar_tpu_torch.profile_step [--config lock|beam]
                                             [--nx N --ny N --nz N]
                                             [--pressure-solver auto|mg]
+                                            [--scheme ppm|rk3]
                                             [--steps 5] [--trace FILE]
 
 `--config lock` (default) builds the lock-exchange level of
 `entry.build_level` (512x128x128; with `--pressure-solver mg` the
-multigrid-forced one, MGParams(eps=1e-5, imax=12)); `--config beam` the
+multigrid-forced one, MGParams(eps=1e-5, imax=12); with `--scheme rk3`
+the same level stepped by the RK3 scheme); `--config beam` the
 BeamGeneration level of `entry.build_beam_level` (640x512, mapped metric,
 implicit gravity, multigrid everywhere).  Runs 10 steps of `entry.run`
 (initial projections, pressure initialization, dt ramped up as that time
@@ -18,20 +20,22 @@ GSRB kernels K5-K6, the probed-stencil kernels K7-K8, matmuls of the
 spectral solves, torch.cat copies of the ghost fills and shifts, other
 elementwise and reduction kernels), the device-busy share (device time /
 wall time), the host reads per step and the 20 kernels with the most
-device time.  For beam it then profiles, alone, the delta-weight probes
-that set up one implicit-gravity CC solve (PoissonOp.delta_kernel_
-overrides on every MG level).  --trace writes a Chrome trace of the
-profiled window.
+device time, each with its launches per step.  For beam it then
+profiles, alone, the delta-weight probes that set up one implicit-gravity
+CC solve (PoissonOp.delta_kernel_overrides on every MG level).  --trace
+writes a Chrome trace of the profiled window.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
 
 from somar_tpu_torch import entry
+from somar_tpu_torch.physics.navier_stokes import NSLevel
 from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.multigrid import MGParams
 
@@ -104,6 +108,7 @@ def main(argv=None) -> int:
     ap.add_argument("--nz", type=int, default=None)
     ap.add_argument("--pressure-solver", default="auto",
                     choices=("auto", "mg"))
+    ap.add_argument("--scheme", default="ppm", choices=("ppm", "rk3"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
@@ -119,6 +124,9 @@ def main(argv=None) -> int:
             nx=args.nx or 512, nz=args.nz or 128, ny=args.ny, device="cuda",
             pressure_solver=args.pressure_solver,
             mg=MGParams(eps=1e-5, imax=12))
+        if args.scheme == "rk3":
+            level = NSLevel(level.geo, level.problem, dataclasses.replace(
+                level.params, update_scheme="rk3"))
         warmup = WARMUP_STEPS
     dts = []
     state = entry.run(level, level.initial_state(), warmup,
@@ -161,9 +169,10 @@ def main(argv=None) -> int:
         ms = us / 1e3 / args.steps
         print(f"  {g:28s} {ms:9.3f} ms/step  {ms / total_ms:6.1%}  "
               f"{group_counts[g] / args.steps:8.0f} launches/step")
-    print("top kernels (ms/step):")
+    print("top kernels (ms/step, launches/step):")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:20]:
-        print(f"  {us / 1e3 / args.steps:9.3f}  {name[:110]}")
+        print(f"  {us / 1e3 / args.steps:9.3f} {counts[name] / args.steps:7.1f}"
+              f"  {name[:100]}")
     if level._altered_metric is not None:
         _profile_probes(level, acts, dt)
     return 0

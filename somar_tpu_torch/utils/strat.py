@@ -1,5 +1,7 @@
-"""Stratification utilities (PyTorch port of `somar_tpu.utils.strat`;
-host numpy/scipy, computed once per level like the metric).
+"""Stratification utilities (PyTorch port of `somar_tpu.utils.strat`):
+N^2 and the vertical normal modes on the host in numpy/scipy, computed
+once per level like the metric, and the gradient Richardson number of a
+state in torch.
 
 The vertical normal-mode problem  phi'' = -(N^2 / c^2) phi,
 phi(0) = phi(-H) = 0, discretized on cell centers, is the generalized
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def compute_bv_freq(background, z: np.ndarray) -> np.ndarray:
@@ -48,3 +51,18 @@ def solve_vert_eigen_problem(nsq: np.ndarray, dz: float, nmodes: int = 1
 
 def compute_max_bv_freq(nsq) -> float:
     return float(np.sqrt(np.maximum(np.max(nsq), 0.0)))
+
+
+def gradient_richardson_number(vel, b_total, geo, eps: float = 1e-12):
+    """Ri = N^2_local / (du/dz)^2 with N^2_local = -db/dz, by centred
+    differences along the vertical axis (one-sided at its ends)."""
+    dvert = geo.grid.vertical_dir
+    ax = geo.grid.axis(dvert)
+    dz = geo.grid.dx[dvert]
+
+    def ddz(f):
+        return torch.gradient(f, dim=ax)[0] / dz
+
+    nsq_loc = -ddz(b_total)
+    shear2 = sum(ddz(vel[m]) ** 2 for m in range(geo.ndim)) + eps
+    return nsq_loc / shear2

@@ -2,8 +2,10 @@
 somar_tpu_torch (the mapped geometry, the probed-stencil kernels K7-K8, the
 altered metric and the stratification utilities among them), builds and
 steps a level on the CPU with the spectral and with the multigrid pressure
-solver, steps the mapped implicit-gravity BeamGeneration level, and has
-imported neither jax nor the JAX package."""
+solver, steps the mapped implicit-gravity BeamGeneration level, runs a
+tiny input deck through RunDriver and through the command line's main
+function (with an RK3 step), and has imported neither jax nor the JAX
+package."""
 
 import os
 import subprocess
@@ -41,6 +43,28 @@ state4 = level4.post_initialize(level4.initial_state())
 state4 = level4.advance(state4, level4.compute_dt(state4))
 assert bool(torch.isfinite(state4.vel).all())
 assert bool(torch.isfinite(state4.scalars).all())
+import os, tempfile
+from somar_tpu_torch.__main__ import main
+from somar_tpu_torch.config.context import ProblemContext
+from somar_tpu_torch.config.parmparse import ParmParse
+from somar_tpu_torch.driver import RunDriver
+deck = ("amr.nx = 16 8\namr.length = 15 2\namr.nx_offset = -8 0\n"
+        "ibc.problem = 1\namr.viscosity = 1e-4\namr.max_dt = 0.05\n"
+        "plot.plot_interval = 1\nplot.checkpoint_interval = 1\n"
+        "amr.verbosity = 0\n")
+with tempfile.TemporaryDirectory() as tmp:
+    ctx = ProblemContext.from_parmparse(ParmParse.from_string(deck))
+    state5, steps = RunDriver(ctx, out_dir=tmp, device="cpu").run(
+        max_steps=2, verbose=False)
+    assert steps == 2 and bool(torch.isfinite(state5.vel).all())
+    path = os.path.join(tmp, "deck")
+    with open(path, "w") as f:
+        f.write(deck)
+    os.chdir(tmp)
+    assert main(["somar_tpu_torch", "--device", "cpu", path,
+                 "amr.maxsteps=1", "amr.updateScheme=2"]) == 0
+    assert os.path.exists(os.path.join(tmp, "chkpt_final.hdf5"))
+    os.chdir("/")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "somar_tpu" or m.startswith("somar_tpu."))

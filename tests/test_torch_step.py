@@ -219,10 +219,11 @@ def test_unported_configurations_raise():
     geo = tgeo(TGrid(nx=(16, 8), dx=(1 / 16, 1 / 8)), TCartesian(),
                device="cpu")
     prob = TLock(pert_amp=0.0)
-    for params in (TParams(update_scheme="rk3"),
-                   TParams(pressure_solver="leptic")):
-        with pytest.raises(NotImplementedError):
-            TLevel(geo, prob, params)
+    with pytest.raises(NotImplementedError):
+        TLevel(geo, prob, TParams(pressure_solver="leptic"))
+    # the RK3 scheme is ported (tests/test_torch_rk3.py)
+    assert TLevel(geo, prob, TParams(update_scheme="rk3")).params \
+        .update_scheme == "rk3"
     # implicit gravity is ported: without a background
     # stratification it has no altered metric
     assert TLevel(geo, prob, TParams(gravity_method=2))._altered_metric \
