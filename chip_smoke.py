@@ -82,7 +82,39 @@ non-zero:
      512)'s and its state to main path 3's after 3 steps (1e-6);
  13. the command line, `python -m somar_tpu_torch <deck> amr.maxsteps=2`,
      in a subprocess on a 128x32 lock exchange: exit 0 and "finished 2
-     steps".
+     steps";
+ 14. D4: HorizConv (ibc.problem = 6) at 512x128x128 through RunDriver
+     (5 steps, then 3 timed): its top buoyancy profile, an array-valued
+     Dirichlet value, in the multigrid diffusive solve (K5-K6 beside
+     K1-K4); buoyancy within (-0.1, 1.1), the MAC divergence gate; first
+     the deck at 64x16x32 on the card against the CPU (1e-3);
+ 15. D5: the vortex street of entry.build_vortex_level at 1024x512 with
+     its inflow ramped over 1.0 time units (a callable BC bound every
+     step), multigrid projections and viscous solves, through entry.run
+     (5 steps, then 3 timed): finite, max|u| <= 10, every projection's
+     relres below 1e-3; host reads a step with the ramp equal to those
+     with ramp_time = 0 (every solve held to 4 V-cycles); 128x64 on the
+     card against the CPU (1e-3);
+ 16. D6: the slotted disk (ibc.problem = 0, no projection, no gravity) at
+     2048x2048 once with each advection option (PPM, PLM, CTU(0), the
+     high-order limiter, central fluxes), 3 steps and 3 timed: the disk
+     within (-0.15, 1.15) (not for central fluxes, which are not
+     monotone), each option's kernels as physics/godunov.py routes them
+     and no other CTU kernel; 128x128 on the card against the CPU (1e-4);
+ 17. D7: InternalWave, SolitaryWave and DJL (KdV eta) at 1024x256, 3
+     steps and 2 timed: total buoyancy within its initial range +- 10%,
+     the MAC divergence gate; 128x32 on the card against the CPU (1e-4);
+ 18. L1: LevelLepticSolver against LevelMultigrid on the 512x512x32 box
+     of the leptic regime (H = 1, dx_h = 2, Neumann walls): orders,
+     status, relres below 1e-3 for both, the gauge-free difference of the
+     solutions (5e-2), ms, host reads and launches per solve; K7/K8 on
+     the flattened (512, 512) level against their twins and timed; a
+     32x32x8 solve on the card against the CPU (1e-3);
+ 19. L2: a flat 3D lock exchange with projection.solver = 2 on the L1
+     box through RunDriver (3 steps): the MAC divergence gate after every
+     advance, each leptic projection's relres below 1e-3, K1-K4 and
+     K6-K8 launched; the deck at 32x32x8 on the card against the CPU
+     (1e-3).
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -1489,6 +1521,667 @@ def cli_phase(device, files, options=()):
         raise PhaseError("the command line did not finish its deck")
 
 
+# --------------------------------------------------------------------------
+# phases 14-19: the rest of the single-level physics and the leptic solver
+# --------------------------------------------------------------------------
+#: D4, horizontal convection at main path 1's widths: the top buoyancy
+#: profile (an array-valued Dirichlet value) enters the diffusive solve,
+#: which takes multigrid; the pressure and viscous solves stay spectral
+D4_DECK = """
+amr.nx = 512 128 128
+amr.length = 15 2 2
+amr.nx_offset = -256 0 0
+amr.isPeriodic = 0 1 0
+ibc.problem = 6
+amr.cfl = 0.9
+amr.viscosity = 1e-4
+amr.scal_diffusion_coeffs = 1e-4
+amr.maxsteps = 5
+amr.final = 1e9
+plot.plot_interval = -1
+plot.checkpoint_interval = -1
+amr.verbosity = 0
+"""
+D4_SMALL = ("amr.nx = 64 16 32\namr.nx_offset = -32 0 0\n"
+            "amr.fixed_dt = 0.01\namr.maxsteps = 3\n")
+#: D5, the vortex street of entry.build_vortex_level: its full size, the
+#: ramp, and the card-against-CPU size
+D5_SIZE = (1024, 512)
+D5_SMALL = (128, 64)
+D5_RAMP = 1.0
+D5_STEPS = 5
+#: D6, Zalesak's slotted disk without projections or gravity (pure
+#: advection), each advection option set for the velocity and the scalars
+D6_DECK = """
+amr.nx = 2048 2048
+amr.length = 1 1
+amr.isPeriodic = 1 1
+ibc.problem = 0
+projection.isIncompressible = 0
+amr.gravityMethod = 0
+amr.maxsteps = 3
+amr.final = 1e9
+plot.plot_interval = -1
+plot.checkpoint_interval = -1
+amr.verbosity = 0
+"""
+D6_SMALL = "amr.nx = 128 128\namr.fixed_dt = 0.002\n"
+D6_OPTIONS = {
+    "ppm": "",
+    "plm": "advection.normalPredOrderVel = 1\n"
+           "advection.normalPredOrderScal = 1\n",
+    "ctu0": "advection.normalPredOrderVel = 0\n"
+            "advection.normalPredOrderScal = 0\n",
+    "high_order_limiter": "advection.useHighOrderLimiterVel = 1\n"
+                          "advection.useHighOrderLimiterScal = 1\n"
+                          "advection.useLimitingVel = 1\n",
+    "central": "advection.useUpwindingVel = 0\n"
+               "advection.useUpwindingScal = 0\n",
+}
+#: the kernels each option's route launches (physics/godunov.py)
+D6_ROUTES = {"ppm": ("ppm_predict", "ctu_final", "riemann_fluxdiv"),
+             "plm": ("ctu_final", "riemann_fluxdiv"),
+             "ctu0": ("ctu_final", "riemann_fluxdiv"),
+             "high_order_limiter": ("ctu_final", "riemann_fluxdiv"),
+             "central": ()}
+#: tests/test_reference_configs.py:33-34
+DISK_BOUNDS = (-0.15, 1.15)
+#: D7, the background-stratified problems on a 2D 8 x 1 box; at rest the
+#: first dt comes from the internal-wave speed limit
+D7_DECK = """
+amr.nx = 1024 256
+amr.length = 8 1
+amr.nx_offset = -512 -256
+ibc.problem = {problem}
+ibc.useBackgroundScalar = 1
+ibc.bgScalarProfile = {profile}
+amr.gravityMethod = 1
+amr.limitDtViaInternalWaveSpeed = 1
+amr.maxsteps = 3
+amr.final = 1e9
+plot.plot_interval = -1
+plot.checkpoint_interval = -1
+amr.verbosity = 0
+"""
+D7_SMALL = "amr.nx = 128 32\namr.nx_offset = -64 -16\namr.fixed_dt = 0.01\n"
+D7_PROBLEMS = {"InternalWave": (3, 1), "SolitaryWave": (7, 3), "DJL": (8, 3)}
+#: L1/L2, the leptic solver's design regime (tools/bench_leptic.py:43-53):
+#: H = 1, horizontal cells dx_h = 2H (eps_leptic = 0.25), Neumann walls
+L1_SIZE = (512, 512, 32)
+L1_SMALL = (32, 32, 8)
+L1_EPS = 1e-6
+L1_ORDERS = 20
+#: the gauge-free difference of the leptic and the multigrid solution
+#: of a random rhs (the JAX package's own bound, tests/test_leptic.py:72)
+L1_DIFF = 5e-2
+L2_DECK = """
+amr.nx = {nx} {ny} {nz}
+amr.length = {lx} {ly} 1
+amr.nx_offset = {off} 0 0
+amr.isPeriodic = 0 0 0
+ibc.problem = 1
+amr.gravityMethod = 1
+amr.cfl = 0.9
+amr.viscosity = 1e-4
+amr.scal_diffusion_coeffs = 1e-4
+projection.solver = 2
+amr.maxsteps = 3
+amr.final = 1e9
+plot.plot_interval = -1
+plot.checkpoint_interval = -1
+amr.verbosity = 0
+"""
+CARD_CPU_RTOL = {"spectral": 1e-4, "multigrid": 1e-3}
+STATE_FIELDS = ("vel", "scalars", "lam", "pressure")
+
+
+def l2_deck(nx, ny, nz, extra=""):
+    return L2_DECK.format(nx=nx, ny=ny, nz=nz, lx=2 * nx, ly=2 * ny,
+                          off=-nx // 2) + extra
+
+
+def timed_steps(torch, level, state, counters, nsteps):
+    """nsteps advances at the next compute_dt (varied by 1e-6 relative a
+    step), the counts set to 0 just before; returns (state, seconds per
+    step, launches per step, host reads per step, max|div| of each step's
+    projected advecting velocity)."""
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    dt = level.compute_dt(state)
+    reset_counts(counters)
+    reads0 = read_scalars.count
+    times, divs = [], []
+    for k in range(nsteps):
+        diag = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = level.advance(state, dt * (1.0 + 1e-6 * (k + 1)), diag=diag)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        divs.append(diag["max_mac_div"])
+    per_step = {n: c / nsteps for n, c in read_counts(counters).items()}
+    reads = (read_scalars.count - reads0) / nsteps
+    return state, times, per_step, reads, [float(d) for d in divs]
+
+
+def finite(torch, state):
+    return all(bool(torch.isfinite(getattr(state, f)).all())
+               for f in STATE_FIELDS)
+
+
+def div_scale(level, state):
+    """max_d max|u_d| / dx_d: the MAC divergence gate's scale."""
+    return max(float(state.vel[d].abs().max()) / level.grid.dx[d]
+               for d in range(level.grid.ndim))
+
+
+def ms_of(times):
+    return 1e3 * statistics.median(times)
+
+
+def deck_card_vs_cpu(torch, deck, device, rtol, label):
+    """The deck through RunDriver on the CPU and on the card; raises
+    unless STATE_FIELDS agree within rtol of max|field|."""
+    from somar_tpu_torch.driver import RunDriver
+    ctx = context(deck)
+    got = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s7_") as out:
+        for dev in ("cpu", device):
+            got[dev], n = RunDriver(ctx, out_dir=out, device=dev).run(
+                verbose=False)
+    rel = field_diffs(got[device], got["cpu"], STATE_FIELDS)
+    err = max(rel.values())
+    say(f"{label} card against CPU {ctx.base_grid().nx} {n} steps: "
+        f"max|diff|/max|field| " + " ".join(
+            f"{f}={e:.3e}" for f, e in rel.items()) + f"; limit {rtol}")
+    if not err <= rtol:
+        raise PhaseError(f"{label}: the card's run differs from the CPU's")
+
+
+def deck_phase(torch, deck, device, counters, label, path, timed=3):
+    """A deck through RunDriver at full size (counts set to 0 just
+    before), then `timed` timed steps; checks finite fields and that each
+    kernel of `path` was launched in the run.  Returns (level, state,
+    launches of the run, a dict of metrics)."""
+    ctx = context(deck)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s7_") as out:
+        torch.cuda.reset_peak_memory_stats()
+        drv, state, steps, launches, reads, secs = driver_run(
+            torch, ctx, out, device, counters)
+    level = drv.level
+    ok = finite(torch, state)
+    state, times, per_step, t_reads, divs = timed_steps(
+        torch, level, state, counters, timed)
+    ok = ok and finite(torch, state)
+    peak = torch.cuda.max_memory_allocated()
+    m = dict(grid=ctx.base_grid().nx, steps=steps, seconds=secs,
+             driver_ms=ms_of(drv.step_seconds), ms=ms_of(times),
+             reads=t_reads, per_step=per_step, peak=peak, divs=divs,
+             scale=div_scale(level, state))
+    say(f"{label} RunDriver {m['grid']} {steps} steps in {secs:.2f} s (with "
+        f"set-up): finite={ok} launches={json.dumps(launches)}; then "
+        f"{timed} timed steps: ms/step={m['ms']:.3f} samples="
+        + ",".join(f"{1e3 * t:.3f}" for t in times)
+        + f" (driver's {m['driver_ms']:.3f}) host reads/step={t_reads:.1f} "
+        f"launches/step={json.dumps(per_step)} peak_mem_bytes={peak} "
+        f"max|div| after each MAC projection="
+        + ",".join(f"{d:.3e}" for d in divs))
+    if not ok:
+        raise PhaseError(f"{label}: non-finite state")
+    check_launched(launches, path, label)
+    return level, state, launches, m
+
+
+def horiz_conv_phase(torch, counters, device, smi):
+    """D4: HorizConv at 512x128x128 through RunDriver; the array-valued
+    top value in the multigrid diffusive solve."""
+    small = D4_DECK + D4_SMALL
+    deck_card_vs_cpu(torch, small, device, CARD_CPU_RTOL["multigrid"], "D4")
+    level, state, launches, m = deck_phase(
+        torch, D4_DECK, device, counters, "D4 HorizConv",
+        ("ppm_predict", "ctu_corr3", "ctu_final", "riemann_fluxdiv",
+         "gsrb_sweeps", "helm_residual"))
+    hs = level.diff_solvers[0]
+    b = state.scalars[0]
+    bmin, bmax = float(b.min()), float(b.max())
+    say(f"D4 HorizConv: diffusive solve by "
+        f"{'multigrid' if hs._fft is None else 'spectral'}, pressure "
+        f"{level.projector.method}, viscous "
+        f"{'batched spectral' if level._visc_batched else 'per component'}"
+        f"; b in [{bmin:.6f}, {bmax:.6f}] (bound {B_BOUNDS}); MAC max|div| "
+        f"limit {MAC_DIV_RTOL} x {m['scale']:.3e} on {smi}")
+    if hs._fft is not None:
+        raise PhaseError("D4: the array-valued top took the spectral solve")
+    if not (B_BOUNDS[0] < bmin and bmax < B_BOUNDS[1]):
+        raise PhaseError(f"D4: buoyancy out of {B_BOUNDS}")
+    if not max(m["divs"]) <= MAC_DIV_RTOL * m["scale"]:
+        raise PhaseError("D4: the MAC projection left a divergence")
+    return launches
+
+
+def vortex_card_vs_cpu(torch, entry, device):
+    from somar_tpu_torch.solvers.multigrid import MGParams
+    mg = MGParams(eps=1e-6, imax=20)
+    nx, ny = D5_SMALL
+    states = {}
+    for dev in ("cpu", device):
+        level, _ = entry.build_vortex_level(nx, ny, ramp_time=D5_RAMP,
+                                            device=dev, mg=mg)
+        state = level.post_initialize(level.initial_state())
+        for _ in range(3):
+            state = level.advance(state, 0.01)
+        states[dev] = state
+    rel = field_diffs(states[device], states["cpu"], STATE_FIELDS)
+    rtol = CARD_CPU_RTOL["multigrid"]
+    say(f"D5 card against CPU ({nx}, {ny}) 3 steps: max|diff|/max|field| "
+        + " ".join(f"{f}={e:.3e}" for f, e in rel.items())
+        + f"; limit {rtol}")
+    if not max(rel.values()) <= rtol:
+        raise PhaseError("D5: the card's run differs from the CPU's")
+
+
+def vortex_reads(torch, entry, device, ramp):
+    """Host reads a step of 2 steps after a first one, every solve held
+    to 4 V-cycles with a smoothing bottom (so that only the binding could
+    change the count)."""
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    from somar_tpu_torch.solvers.multigrid import MGParams
+    level, _ = entry.build_vortex_level(
+        *D5_SIZE, ramp_time=ramp, device=device,
+        mg=MGParams(eps=1e-30, imin=4, imax=4, bottom_solver="smooth"))
+    state = level.post_initialize(level.initial_state())
+    state = level.advance(state, 0.002)
+    r0 = read_scalars.count
+    for _ in range(2):
+        state = level.advance(state, 0.002)
+    torch.cuda.synchronize()
+    return (read_scalars.count - r0) / 2
+
+
+def vortex_phase(torch, entry, counters, device, smi):
+    """D5: the 1024x512 vortex street with its ramped inflow through
+    entry.run, multigrid projections and viscous solves."""
+    vortex_card_vs_cpu(torch, entry, device)
+    level, grid = entry.build_vortex_level(*D5_SIZE, ramp_time=D5_RAMP,
+                                           device=device)
+    infos = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    state = entry.run(level, level.initial_state(), D5_STEPS,
+                      on_step=lambda i, s, dt: infos.append(
+                          dict(level.projector.last_info)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    ok = finite(torch, state)
+    state, times, per_step, reads, divs = timed_steps(
+        torch, level, state, counters, 3)
+    ok = ok and finite(torch, state)
+    peak = torch.cuda.max_memory_allocated()
+    umax = float(state.vel.abs().max())
+    inflow = float(level.vel_bcs_trace[0].lo[0].value(state.time))
+    worst = max(rr for info in infos for (_, rr) in info.values())
+    scale = div_scale(level, state)
+    r_ramp = vortex_reads(torch, entry, device, D5_RAMP)
+    r_const = vortex_reads(torch, entry, device, 0.0)
+    say(f"D5 VortexStreet {grid.nx} {D5_STEPS} steps in {secs:.2f} s (with "
+        f"set-up): finite={ok} t={float(state.time):.4f} inflow u0 "
+        f"min(1, t/{D5_RAMP})={inflow:.6f} max|u|={umax:.4f} worst "
+        f"projection relres={worst:.3e} launches={json.dumps(launches)}; "
+        f"3 timed steps: ms/step={ms_of(times):.3f} samples="
+        + ",".join(f"{1e3 * t:.3f}" for t in times)
+        + f" host reads/step={reads:.1f} launches/step="
+        f"{json.dumps(per_step)} peak_mem_bytes={peak} max|div| after each "
+        f"MAC projection=" + ",".join(f"{d:.3e}" for d in divs)
+        + f" (scale {scale:.3e}, no gate: the inflow-outflow imbalance); "
+        f"host reads/step with 4 "
+        f"V-cycles a solve: ramped {r_ramp:.1f}, ramp_time = 0 {r_const:.1f}"
+        f" on {smi}")
+    if not ok:
+        raise PhaseError("D5: non-finite state")
+    if not umax <= 10.0:
+        raise PhaseError("D5: max|u| above 10 times the inflow")
+    if not worst <= SOLVE_FAIL_RELRES:
+        raise PhaseError("D5: a projection did not reduce its residual")
+    # (no MAC divergence gate: the outflow face is not pinned and the
+    # pressure BCs are Neumann, so the solvability projection leaves the
+    # net inflow-outflow imbalance as a uniform divergence, in the JAX
+    # package as here)
+    if r_ramp != r_const:
+        raise PhaseError("D5: binding the inflow added host reads")
+    check_launched(launches, ("ppm_predict", "ctu_final", "riemann_fluxdiv",
+                              "gsrb_sweeps", "helm_residual"), "D5")
+    if launches["ctu_corr3"] != 0:
+        raise PhaseError("D5: a 2D step launched K2")
+    return launches
+
+
+def batched_tracer_check(torch, counters, device):
+    """The batched tracer (three fields, PPM, 3D 64x32x32), which no step
+    calls: the card's kernels against the CPU's twins within 1e-5 of
+    max|output|; prints the card's launches."""
+    from somar_tpu_torch.core.bc import BC, FieldBCs, fill_ghosts_cc
+    from somar_tpu_torch.core.grid import Grid
+    from somar_tpu_torch.geometry.geo_source import CartesianMap
+    from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+    from somar_tpu_torch.physics import godunov as gd
+    nx = (64, 32, 32)
+    grid = Grid(nx=nx, dx=tuple(1.0 / n for n in nx))
+    out, launches = {}, None
+    for dev in ("cpu", device):
+        geo = build_level_geometry(grid, CartesianMap(), device=dev)
+        bcs = FieldBCs.from_periodic(grid, BC.extrap(1))
+        gen = torch.Generator().manual_seed(3)
+
+        def rnd(shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+        fields = [rnd(grid.shape) for _ in range(3)]
+        u_pad = [fill_ghosts_cc(rnd(grid.shape, 0.5), grid, bcs,
+                                gd.ADVECT_GROW) for _ in range(3)]
+        adv = tuple(gd.pad_valid_faces(rnd(grid.fc_shape(d), 0.5), grid, d)
+                    for d in range(3))
+        reset_counts(counters)
+        faces = gd.trace_face_states_batched(
+            fields, None, [bcs] * 3, adv, 0.02, geo, gd.AdvectionParams(),
+            u_pad)
+        out[dev] = faces + (gd.flux_divergence_batched(faces, adv, geo),)
+        launches = read_counts(counters)
+    err = max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+              for g, w in zip(out[device], out["cpu"]))
+    say(f"D6 batched tracer card against CPU {nx} x3 fields: max|diff|/"
+        f"max|output|={err:.3e} limit 1e-05; card launches "
+        f"{json.dumps(launches)}")
+    if not err <= 1e-5:
+        raise PhaseError("D6: the card's batched tracer differs from the "
+                         "CPU's")
+    check_launched(launches, ("ppm_predict", "ctu_corr3", "ctu_final"),
+                   "D6 batched tracer")
+
+
+def advection_phase(torch, counters, device, smi):
+    """D6: the slotted disk at 2048x2048 once with every advection
+    option, launches by option; then the batched tracer card against
+    CPU."""
+    by_option = {}
+    for name, keys in D6_OPTIONS.items():
+        deck = D6_DECK + keys
+        deck_card_vs_cpu(torch, deck + D6_SMALL, device,
+                         CARD_CPU_RTOL["spectral"], f"D6 {name}")
+        route = D6_ROUTES[name]
+        level, state, launches, m = deck_phase(
+            torch, deck, device, counters, f"D6 AdvectionTest {name}", route)
+        s = state.scalars[0]
+        smin, smax = float(s.min()), float(s.max())
+        off_route = [k for k in ("ppm_predict", "ctu_corr3", "ctu_final",
+                                 "riemann_fluxdiv") if k not in route
+                     and launches.get(k, 0) != 0]
+        say(f"D6 {name}: scalar in [{smin:.6f}, {smax:.6f}] (bound "
+            f"{DISK_BOUNDS if name != 'central' else 'none'}); route {list(route) or 'plain torch'}; "
+            f"params vel={level.params.advection_vel} on {smi}")
+        # central fluxes are not monotone: in both packages the disk
+        # leaves the upwinded schemes' bound within a few steps at this
+        # CFL, so they are held to the CPU and to finite fields only
+        if name != "central" and not (DISK_BOUNDS[0] < smin
+                                      and smax < DISK_BOUNDS[1]):
+            raise PhaseError(f"D6 {name}: the disk left {DISK_BOUNDS}")
+        if off_route:
+            raise PhaseError(f"D6 {name}: launched {off_route} off its "
+                             "route")
+        by_option[name] = launches
+    batched_tracer_check(torch, counters, device)
+    return by_option
+
+
+def stratified_phase(torch, counters, device, smi):
+    """D7: InternalWave, SolitaryWave and DJL (KdV eta) at 1024x256, 3
+    steps each through RunDriver."""
+    by_problem = {}
+    for name, (problem, profile) in D7_PROBLEMS.items():
+        deck = D7_DECK.format(problem=problem, profile=profile)
+        deck_card_vs_cpu(torch, deck + D7_SMALL, device,
+                         CARD_CPU_RTOL["spectral"], f"D7 {name}")
+        ctx = context(deck)
+        geo = ctx.base_grid()
+        level, state, launches, m = deck_phase(
+            torch, deck, device, counters, f"D7 {name}",
+            ("ppm_predict", "ctu_final", "riemann_fluxdiv"))
+        bbar = level._tensor(level.problem.background_cc(level.geo))
+        b0 = level.initial_state().scalars[0] + bbar
+        b = state.scalars[0] + bbar
+        lo0, hi0 = float(b0.min()), float(b0.max())
+        pad = 0.1 * (hi0 - lo0)
+        lo, hi = float(b.min()), float(b.max())
+        say(f"D7 {name} {geo.nx}: total buoyancy in [{lo:.6f}, {hi:.6f}], "
+            f"initially [{lo0:.6f}, {hi0:.6f}] (bound: the initial range "
+            f"+- 10%); pressure {level.projector.method} on {smi}")
+        if not (lo0 - pad <= lo and hi <= hi0 + pad):
+            raise PhaseError(f"D7 {name}: buoyancy left its initial range")
+        if not max(m["divs"]) <= MAC_DIV_RTOL * m["scale"]:
+            raise PhaseError(f"D7 {name}: the MAC projection left a "
+                             "divergence")
+        by_problem[name] = launches
+    return by_problem
+
+
+def leptic_box(torch, nx, ny, nz, device):
+    """The leptic design-regime box and its Neumann BCs."""
+    from somar_tpu_torch.core.bc import BC, FieldBCs
+    from somar_tpu_torch.core.grid import Grid
+    from somar_tpu_torch.geometry.geo_source import CartesianMap
+    from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+    grid = Grid(nx=(nx, ny, nz), dx=(2.0, 2.0, 1.0 / nz))
+    geo = build_level_geometry(grid, CartesianMap(), device=device)
+    return geo, FieldBCs.from_periodic(grid, BC.neumann(0.0))
+
+
+def leptic_rhs(torch, geo, seed=0):
+    gen = torch.Generator(device=geo.device).manual_seed(seed)
+    rhs = torch.randn(geo.grid.shape, generator=gen, device=geo.device)
+    return rhs - rhs.mean()
+
+
+def gauge_free_diff(a, b):
+    a = a - a.mean()
+    b = b - b.mean()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def leptic_full(torch, counters, geo, bcs, lp, rhs, dtype, smi):
+    """One full-size L1 run in `dtype`: the leptic solve alone, with its
+    multigrid finisher, and LevelMultigrid on the same rhs, each timed on
+    its second call with the counts set to 0 just before."""
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    from somar_tpu_torch.solvers.leptic import LevelLepticSolver
+    from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
+    rhs = rhs.to(dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lep = LevelLepticSolver(geo, bcs, lp, dtype=dtype)
+    mg = LevelMultigrid(geo, bcs, MGParams(eps=L1_EPS, imax=20), dtype=dtype)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    plans = [op._stencil_plan is not None for op in lep.h_mg.ops]
+
+    def timed(fn):
+        fn()                                   # first call: warm
+        reset_counts(counters)
+        r0 = read_scalars.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, 1e3 * (time.perf_counter() - t0),
+                read_scalars.count - r0, read_counts(counters))
+
+    (phi_o, (orders_o, rel_o, status_o)), ms_o, reads_o, _ = timed(
+        lambda: lep.solve(rhs))
+    (phi_l, (orders, rel_l, status)), ms_l, reads_l, launch_l = timed(
+        lambda: lep.solve_with_fallback(rhs))
+    (phi_m, (cycles, rel_m)), ms_m, reads_m, launch_m = timed(
+        lambda: mg.solve(rhs, singular=True))
+    peak = torch.cuda.max_memory_allocated()
+    diff = gauge_free_diff(phi_l, phi_m)
+    ok = bool(torch.isfinite(phi_l).all()) and bool(
+        torch.isfinite(phi_m).all())
+    say(f"L1 leptic {L1_SIZE} {dtype} eps_leptic=0.25 (set-up {setup:.2f} "
+        f"s, flattened {tuple(lep.h_mg.ops[0].grid.shape)} levels with a "
+        f"stencil plan {plans}): leptic alone orders={orders_o} "
+        f"relres={rel_o:.3e} status={status_o} {ms_o:.3f} ms "
+        f"({reads_o} host reads); with the multigrid finisher orders="
+        f"{orders} status={status} final relres={rel_l:.3e} {ms_l:.3f} ms "
+        f"({reads_l} host reads) launches={json.dumps(launch_l)}; "
+        f"LevelMultigrid V-cycles={cycles} relres={rel_m:.3e} modes="
+        f"{mg.modes} {ms_m:.3f} ms ({reads_m} host reads) launches="
+        f"{json.dumps(launch_m)}; gauge-free max|phi_leptic - phi_mg| / "
+        f"max|phi_mg|={diff:.3e} (limit {L1_DIFF}) finite={ok} "
+        f"peak_mem_bytes={peak} on {smi}")
+    if not ok:
+        raise PhaseError(f"L1 {dtype}: a non-finite solution")
+    return dict(solver=lep, phi_l=phi_l, phi_m=phi_m, rel_l=rel_l,
+                rel_m=rel_m, diff=diff, launch_l=launch_l, launch_m=launch_m)
+
+
+def leptic_solve_phase(torch, counters, device, smi, sgk, worst):
+    """L1: the leptic solver against LevelMultigrid on the 512x512x32
+    box, in float32 and in float64: orders, status, residuals, solution
+    difference, ms and launches per solve; K7/K8 against their twins and
+    timed on the flattened (512, 512) level."""
+    from somar_tpu_torch.solvers.leptic import LepticParams, LevelLepticSolver
+    lp = LepticParams(eps=L1_EPS, max_order=L1_ORDERS)
+    # card against CPU on a small box
+    phis = {}
+    for dev in ("cpu", device):
+        geo, bcs = leptic_box(torch, *L1_SMALL, dev)
+        rhs = leptic_rhs(torch, leptic_box(torch, *L1_SMALL, "cpu")[0])
+        phis[dev], info = LevelLepticSolver(geo, bcs, lp).solve_with_fallback(
+            rhs.to(dev))
+    err = gauge_free_diff(phis[device].cpu(), phis["cpu"])
+    say(f"L1 leptic card against CPU {L1_SMALL}: gauge-free "
+        f"max|diff|/max|phi|={err:.3e} limit {CARD_CPU_RTOL['multigrid']} "
+        f"(card: orders={info[0]} relres={info[1]:.3e} status={info[2]})")
+    if not err <= CARD_CPU_RTOL["multigrid"]:
+        raise PhaseError("L1: the card's leptic solve differs from the CPU's")
+
+    geo, bcs = leptic_box(torch, *L1_SIZE, device)
+    rhs = leptic_rhs(torch, geo)
+    runs = {dt: leptic_full(torch, counters, geo, bcs, lp, rhs, dt, smi)
+            for dt in (torch.float32, torch.float64)}
+    f32, f64 = runs[torch.float32], runs[torch.float64]
+    say(f"L1 float32 against float64 gauge-free max|diff|/max|phi|: "
+        f"leptic {gauge_free_diff(f32['phi_l'].double(), f64['phi_l']):.3e}"
+        f" multigrid "
+        f"{gauge_free_diff(f32['phi_m'].double(), f64['phi_m']):.3e}")
+    # float32 solves of this random rhs stop at their rounding floor
+    # (relres ~2e-3, as the JAX package's own record of this box,
+    # docs/LEPTIC_AB.json, shows): the residual gate is the float64 run's
+    if not (f64["rel_l"] < SOLVE_FAIL_RELRES
+            and f64["rel_m"] < SOLVE_FAIL_RELRES):
+        raise PhaseError("L1: a float64 solve did not reach a relative "
+                         f"residual of {SOLVE_FAIL_RELRES}")
+    for dt, run in runs.items():
+        if not run["diff"] <= L1_DIFF:
+            raise PhaseError(f"L1 {dt}: the leptic and the multigrid "
+                             "solution differ")
+        check_launched(run["launch_l"], ("helm_residual",
+                                         "stencil_gsrb_sweeps",
+                                         "stencil_helm_residual"), "L1")
+    lep = f32["solver"]
+
+    # K7/K8 on the flattened level: against the twins, then timed
+    plan = lep.h_mg.ops[0]._stencil_plan
+    gen = torch.Generator(device=device).manual_seed(5)
+    phi, r = (torch.randn(plan.shape, generator=gen, device=device)
+              for _ in range(2))
+    stencil_parity_case(torch, sgk, f"flattened {plan.shape}", plan, phi, r,
+                        [("plain", {})], worst)
+    times = {}
+    for name, cu_name, kern, plain in (
+            ("stencil_gsrb_sweeps", K7_NAMES,
+             lambda: sgk.stencil_gsrb_sweeps(plan, phi, r, 0.0, 1.0, 1),
+             lambda: sgk.stencil_gsrb_sweeps_plain(plan, phi, r, 0.0, 1.0,
+                                                   1)),
+            ("stencil_helm_residual", ("stencil_helm_residual_kernel",),
+             lambda: sgk.stencil_helm_residual(plan, phi, r, 0.0, 1.0),
+             lambda: sgk.stencil_helm_residual_plain(plan, phi, r, 0.0,
+                                                     1.0))):
+        bound, by = bound_ms(name, phi.numel(), K=plan.K)
+        times[name] = dict(ms=median_ms(torch, kern),
+                           plain_ms=median_ms(torch, plain),
+                           device_ms=device_ms(torch, kern, cu_name),
+                           bound_ms=bound, K=plan.K, shape=list(plan.shape))
+        say(f"timing {name:21s} flattened {str(plan.shape):12s} K={plan.K} "
+            f"kernel={times[name]['ms']:.4f} ms plain="
+            f"{times[name]['plain_ms']:.4f} ms kernel device time="
+            f"{times[name]['device_ms']:.4f} ms bound={bound:.4f} ms ({by})")
+    return f32["launch_l"], f32["launch_m"], f64["launch_l"], times
+
+
+def leptic_step_phase(torch, counters, device, smi):
+    """L2: the flat 3D lock exchange with projection.solver = 2 on the L1
+    box through RunDriver, 3 steps, MAC max|div| after each step."""
+    from somar_tpu_torch.driver import RunDriver
+    small = l2_deck(*L1_SMALL, extra="amr.fixed_dt = 0.02\n"
+                    "amr.maxsteps = 2\n")
+    deck_card_vs_cpu(torch, small, device, CARD_CPU_RTOL["multigrid"], "L2")
+    ctx = context(l2_deck(*L1_SIZE))
+    if ctx.ns.pressure_solver != "leptic":
+        raise PhaseError("L2: projection.solver = 2 did not select leptic")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_l2_") as out:
+        drv = RunDriver(ctx, out_dir=out, device=device)
+        level = drv.level
+        divs, infos = [], []
+        advance = level.advance
+
+        def advance_with_diag(state, dt, diag=None):
+            d = {} if diag is None else diag
+            new = advance(state, dt, diag=d)
+            divs.append((d["max_mac_div"], div_scale(level, new)))
+            infos.append(dict(level.projector.last_info))
+            return new
+
+        level.advance = advance_with_diag
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        state, steps = drv.run(verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+    ok = finite(torch, state)
+    divs = [(float(d), s) for d, s in divs]
+    ms = ms_of(drv.step_seconds[-steps:])
+    say(f"L2 leptic lock exchange {ctx.base_grid().nx} {steps} steps in "
+        f"{secs:.2f} s (with set-up, initial projections and pressure "
+        f"iterations): finite={ok} ms/step={ms:.3f} (driver; its "
+        f"per-step divergence reads included) launches="
+        f"{json.dumps(launches)} peak_mem_bytes={peak}; per advance MAC "
+        f"max|div| / (max_d max|u_d|/dx_d)="
+        + ",".join(f"{d / max(s, 1e-30):.3e}" for d, s in divs)
+        + f" (limit {MAC_DIV_RTOL}); solves per advance "
+        + "; ".join(" ".join(f"{p}: it={it} relres={rr:.3e}"
+                             for p, (it, rr) in sorted(i.items()))
+                    for i in infos) + f" on {smi}")
+    if not ok:
+        raise PhaseError("L2: non-finite state")
+    if steps != 3:
+        raise PhaseError(f"L2 ran {steps} steps")
+    if not all(d <= MAC_DIV_RTOL * s for d, s in divs[-steps:]):
+        raise PhaseError("L2: a MAC projection left a divergence")
+    if not all(rr <= SOLVE_FAIL_RELRES for i in infos
+               for (_, rr) in i.values()):
+        raise PhaseError("L2: a leptic projection did not reduce its "
+                         "residual")
+    check_launched(launches, ("ppm_predict", "ctu_corr3", "ctu_final",
+                              "riemann_fluxdiv", "helm_residual",
+                              "stencil_gsrb_sweeps",
+                              "stencil_helm_residual"), "L2")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1560,6 +2253,23 @@ def main() -> int:
     del path3
     cli_phase(device, files)
 
+    # the phases of the other problems, options and the leptic solver:
+    # each prints its own seconds
+    counters = (ck, gk, sgk)
+    phases = {}
+    for key, fn in (
+            ("d4", lambda: horiz_conv_phase(torch, counters, device, smi)),
+            ("d5", lambda: vortex_phase(torch, entry, counters, device, smi)),
+            ("d6", lambda: advection_phase(torch, counters, device, smi)),
+            ("d7", lambda: stratified_phase(torch, counters, device, smi)),
+            ("l1", lambda: leptic_solve_phase(torch, counters, device, smi,
+                                              sgk, errs)),
+            ("l2", lambda: leptic_step_phase(torch, counters, device, smi))):
+        t0 = time.perf_counter()
+        phases[key] = fn()
+        say(f"phase {key.upper()}: {time.perf_counter() - t0:.1f} s")
+    l1_lep, l1_mg, l1_f64, flat_times = phases["l1"]
+
     k6_levels = {}
     for shape, (ms, plain, dev) in k6_times.items():
         bound = bound_ms("helm_residual", math.prod(shape))[0]
@@ -1616,6 +2326,19 @@ def main() -> int:
             max_abs_err=errs[name], bound_ms=bound, bound_by=by,
             # no single PyTorch call computes any of these functions
             library_ms=None)
+        entry_.update(
+            launches_d4=phases["d4"][name], launches_d5=phases["d5"][name],
+            launches_d6=sum(v[name] for v in phases["d6"].values()),
+            launches_d6_by_option={k: v[name]
+                                   for k, v in phases["d6"].items()},
+            launches_d7=sum(v[name] for v in phases["d7"].values()),
+            launches_d7_by_problem={k: v[name]
+                                    for k, v in phases["d7"].items()},
+            launches_l1=l1_lep[name], launches_l1_multigrid=l1_mg[name],
+            launches_l1_float64=l1_f64[name],
+            launches_l2=phases["l2"][name])
+        if name in flat_times:
+            entry_["flattened_leptic_level"] = flat_times[name]
         if name == "ppm_predict":
             entry_["by_axis"] = k1_axes
         if name == "helm_residual":

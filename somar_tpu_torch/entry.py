@@ -1,11 +1,13 @@
 """Entry points of the port: the 3D lock-exchange level of the JAX
 package's `__graft_entry__`, the BeamGeneration level of its mapped bench
 path, the single-level time loop of its `RunDriver` (somar_tpu/driver.py),
-and the carriers of states and probed stencils between the two packages.
+and the carriers of states, probed stencils and raw (array-defined)
+geometries between the two packages.
 
     level, grid = build_level(nx=64, nz=32, ny=16, device="cuda")
     state = run(level, level.initial_state(), nsteps=10)
     level, grid = build_beam_level(640, 512, device="cuda")
+    level, grid = build_vortex_level(1024, 512, ramp_time=1.0, device="cuda")
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.bathymetric import BeamGeneratorMap
 from somar_tpu_torch.geometry.geo_source import CartesianMap
 from somar_tpu_torch.geometry.level_geometry import (
-    build_level_geometry, require_device)
+    LevelGeometry, build_level_geometry, require_device)
+from somar_tpu_torch.geometry.raw_geometry import raw_level_geometry
 from somar_tpu_torch.ops.stencil_gsrb_kernels import StencilPlan
 from somar_tpu_torch.physics.navier_stokes import NSLevel, NSParams, NSState
-from somar_tpu_torch.problems.base import LinearProfile
-from somar_tpu_torch.problems.library import BeamGeneration
+from somar_tpu_torch.problems.base import LinearProfile, SpongeSpec
+from somar_tpu_torch.problems.library import BeamGeneration, VortexStreet
 from somar_tpu_torch.problems.lock_exchange import LockExchange
 from somar_tpu_torch.solvers.multigrid import MGParams
 
@@ -99,6 +102,32 @@ def build_beam_level(nx: int = 640, nz: int = 512, *, device="cuda",
     return NSLevel(geo, prob, params), grid
 
 
+def build_vortex_level(nx: int = 1024, ny: int = 512, *,
+                       ramp_time: float = 1.0, device="cuda",
+                       dtype=torch.float32, mg: MGParams = MGParams(
+                           eps=1e-5, imax=12)):
+    """VortexStreet on an 8 x 4 box, 2D (x, y) periodic in y: inflow (1, 0)
+    at x = 0 ramped over `ramp_time` (a time-dependent Dirichlet value,
+    bound at each step's midpoint time; ramp_time = 0 holds it at 1), an
+    extrapolated outflow, sponges over 0.1 of x at each end relaxing to
+    the inflow, the default 1e-2 random perturbation (seed 0), nu = 1e-3,
+    no gravity, Crank-Nicolson viscosity, and multigrid pressure and
+    viscous solves.  A deck cannot set ramp_time.  Runs on the GPU unless
+    `device` says otherwise, and raises without one.  Returns (level,
+    grid)."""
+    Lx, Ly = 8.0, 4.0
+    grid = Grid(nx=(nx, ny), dx=(Lx / nx, Ly / ny), x0=(0.0, -Ly / 2),
+                periodic=(False, True))
+    geo = build_level_geometry(grid, CartesianMap(), device=device,
+                               dtype=dtype)
+    prob = VortexStreet(inflow_vel=(1.0, 0.0), ramp_time=ramp_time,
+                        sponge=SpongeSpec(width_lo=(0.1, 0.0),
+                                          width_hi=(0.1, 0.0)))
+    params = NSParams(nu=1e-3, kappa=(1e-3,), gravity_method=0,
+                      pressure_solver="mg", mg=mg, dtype=dtype)
+    return NSLevel(geo, prob, params), grid
+
+
 def run(level: NSLevel, state: NSState, nsteps: int,
         on_step: Optional[Callable[[int, NSState, float], None]] = None
         ) -> NSState:
@@ -160,3 +189,16 @@ def stencil_plan_from_numpy(offsets, Wn, R, D, shape, periodic,
 
     return StencilPlan(offsets, t(Wn), t(R), t(np.broadcast_to(D, shape)),
                        shape, periodic)
+
+
+def raw_geometry_from_numpy(grid: Grid, J, Jgup_diag, device="cuda",
+                            dtype=torch.float32) -> LevelGeometry:
+    """A raw (array-defined) LevelGeometry of the port from host arrays:
+    J at cell centres and J g^dd on the faces of each direction (e.g. a
+    JAX raw geometry's arrays read out with np.asarray), so that tests
+    feed one metric, such as a leptic solver's flattened level, to both
+    packages."""
+    device = require_device(device)
+    return raw_level_geometry(grid, np.asarray(J),
+                              [np.asarray(g) for g in Jgup_diag],
+                              device=device, dtype=dtype)

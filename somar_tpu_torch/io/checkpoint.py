@@ -239,6 +239,7 @@ def read_checkpoint(path: str, level, fine_grid=None):
 def _plot_fields(state, level, plot_cfg=None) -> dict:
     """Field name -> host array of one level's plot dump, with the
     optional derived fields of the plot.write* flags."""
+    from somar_tpu_torch.core.bc import bind_bcs_time
     from somar_tpu_torch.ops.stencil import fc_to_cc, mac_gradient, vorticity
     from somar_tpu_torch.physics.derived import (
         compute_ri_number, compute_stream_function)
@@ -268,7 +269,7 @@ def _plot_fields(state, level, plot_cfg=None) -> dict:
         fields["divergence"] = _host(level.cell_divergence(state))
     if on("write_vorticity"):
         w = vorticity(state.vel, geo,
-                      [level.vel_bcs_trace[m] for m in range(ndim)])
+                      bind_bcs_time(level.vel_bcs_trace, state.time))
         if ndim == 2:
             fields["vorticity"] = _host(w)
         else:

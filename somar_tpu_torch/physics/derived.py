@@ -8,13 +8,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from somar_tpu_torch.core.bc import bind_bcs_time
 from somar_tpu_torch.ops.stencil import vorticity
 from somar_tpu_torch.utils.strat import gradient_richardson_number
 
 
 def compute_vorticity(level, state):
     return vorticity(state.vel, level.geo,
-                     [level.vel_bcs_trace[m] for m in range(level.grid.ndim)])
+                     bind_bcs_time(level.vel_bcs_trace, state.time))
 
 
 def compute_stream_function(level, state):
@@ -28,9 +29,11 @@ def compute_stream_function(level, state):
 
 def compute_lap_vel(level, state):
     """Vector Laplacian of the Cartesian velocity, per component."""
-    return torch.stack([
-        level._visc_ops[m].apply(state.vel[m], 0.0, 1.0, homogeneous=False)
-        for m in range(level.grid.ndim)])
+    with level._bound_time_bcs(state.time):
+        return torch.stack([
+            level._visc_ops[m].apply(state.vel[m], 0.0, 1.0,
+                                     homogeneous=False)
+            for m in range(level.grid.ndim)])
 
 
 def compute_ri_number(level, state):

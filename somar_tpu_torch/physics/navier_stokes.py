@@ -23,20 +23,25 @@ V-cycle and one per BiCGStab iteration (solvers/host_reads.py).
 With update_scheme = "rk3" the step is the SSP-RK3 method of lines of
 physics/rk3.py instead.
 
-Uniform Cartesian levels run with spectral, multigrid or BiCGStab
-pressure solves and spectral or multigrid heat solves; mapped levels with
-multigrid.  Time-dependent BCs raise NotImplementedError.
+Uniform Cartesian levels run with spectral, multigrid, BiCGStab or
+leptic pressure solves and spectral or multigrid heat solves; mapped
+levels with multigrid.  Time-dependent (callable) BC values are bound at
+the step's midpoint time, a 0-d device tensor, for the whole step
+(`_bound_time_bcs`), so they add no host read; array-valued BC profiles
+are moved to the level's device once, at construction.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from somar_tpu_torch.core.bc import BC, FieldBCs, apply_fc_bc, fill_ghosts_cc
+from somar_tpu_torch.core.bc import (
+    BC, FieldBCs, apply_fc_bc, bind_bcs_time, fill_ghosts_cc)
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 from somar_tpu_torch.ops.stencil import (
     avg_along, cc_to_fc, face_avg, mac_divergence, slc)
@@ -144,15 +149,22 @@ class NSLevel:
         kw = dict(dtype=dtype, device=self.device)
 
         self.is_viscous = params.nu > 0.0
-        self.vel_bcs_trace = problem.vel_bcs(grid, viscous=False)
-        self.vel_bcs_visc = problem.vel_bcs(grid, viscous=self.is_viscous)
-        self.scal_bcs = problem.scalar_bcs(grid)
+        # BC sets, their array profiles moved to the device once
+        self.vel_bcs_trace = tuple(
+            b.on_device(self.device, dtype)
+            for b in problem.vel_bcs(grid, viscous=False))
+        self.vel_bcs_visc = tuple(
+            b.on_device(self.device, dtype)
+            for b in problem.vel_bcs(grid, viscous=self.is_viscous))
+        self.scal_bcs = problem.scalar_bcs(grid).on_device(self.device,
+                                                           dtype)
         self.lam_bcs = FieldBCs.from_periodic(grid, BC.extrap(1))
-        if (any(b.time_dependent for b in self.vel_bcs_trace)
-                or any(b.time_dependent for b in self.vel_bcs_visc)
-                or self.scal_bcs.time_dependent):
-            raise NotImplementedError(
-                "time-dependent BC values are not ported yet, see ROADMAP")
+        #: any callable (time-dependent) BC values?  Then `advance` binds
+        #: every BC value at the step's midpoint time (_bound_time_bcs)
+        self._time_bcs = (any(b.time_dependent for b in self.vel_bcs_trace)
+                          or any(b.time_dependent
+                                 for b in self.vel_bcs_visc)
+                          or self.scal_bcs.time_dependent)
 
         mg_purposes = {k: v for k, v in (("mac", params.mg_mac),
                                          ("cc", params.mg_cc))
@@ -175,8 +187,9 @@ class NSLevel:
                 BatchedSpectralHeat(self.visc_solvers)
                 if BatchedSpectralHeat.supports(self.visc_solvers) else None)
         diff_bcs = getattr(problem, "diffusive_solve_bcs", None)
-        diff_bcs = diff_bcs(grid) if callable(diff_bcs) else \
-            FieldBCs.from_periodic(grid, BC.neumann(0.0))
+        diff_bcs = (diff_bcs(grid) if callable(diff_bcs) else
+                    FieldBCs.from_periodic(grid, BC.neumann(0.0))
+                    ).on_device(self.device, dtype)
         self.diff_solvers = []
         for comp in range(problem.num_scalars):
             kap = params.kappa[comp] if comp < len(params.kappa) else 0.0
@@ -189,6 +202,13 @@ class NSLevel:
         # Laplacian op for the explicit viscous source
         self._visc_ops = [PoissonOp(geo, self.vel_bcs_visc[m])
                           for m in range(ndim)]
+        # time-dependent BC values with implicit solves: build the lazy MG
+        # hierarchies now, outside any bound scope, so that no bound value
+        # is captured by an operator the scope does not swap back
+        if self._time_bcs:
+            for hs in self._heat_solvers():
+                if hs.bcs.time_dependent and hs._fft is None:
+                    hs.mg  # noqa: B018 (built for its side effect)
 
         self._sponge_ramp = None
         if problem.sponge is not None:
@@ -213,6 +233,46 @@ class NSLevel:
         # physical z at cell centers, for the energy diagnostic
         self._z_cc = torch.as_tensor(np.array(np.broadcast_to(
             geo.phys_coords_cc()[ndim - 1], grid.shape)), **kw)
+
+    def _heat_solvers(self):
+        return ((self.visc_solvers if self.is_viscous else [])
+                + [h for h in self.diff_solvers if h is not None])
+
+    @contextlib.contextmanager
+    def _bound_time_bcs(self, t):
+        """Scope in which every callable BC value is bound at time t (a
+        0-d tensor on the level's device, or a float): the level's BC
+        sets, the heat solvers, their operators and their multigrid
+        level-0 operators get the bound BCs, restored on exit.  The
+        operators' structural data (diagonals, face factors, kernel plans)
+        depends only on the BC types, so swapping values is safe."""
+        saved = []
+
+        def swap(obj, name, val):
+            saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, val)
+
+        vt = bind_bcs_time(self.vel_bcs_trace, t)
+        vv = bind_bcs_time(self.vel_bcs_visc, t)
+        swap(self, "vel_bcs_trace", vt)
+        swap(self, "vel_bcs_visc", vv)
+        swap(self, "scal_bcs", self.scal_bcs.at_time(t))
+        if self.is_viscous:
+            for m, op in enumerate(self._visc_ops):
+                if op.bcs.time_dependent:
+                    swap(op, "bcs", vv[m])
+        for hs in self._heat_solvers():
+            if hs.bcs.time_dependent:
+                b = hs.bcs.at_time(t)
+                swap(hs, "bcs", b)
+                swap(hs._op, "bcs", b)
+                if hs._mg is not None:
+                    swap(hs._mg.ops[0], "bcs", b)
+        try:
+            yield
+        finally:
+            for obj, name, val in reversed(saved):
+                setattr(obj, name, val)
 
     def _internal_wave_speed(self):
         """Per-direction first-mode phase speed c0^d = c0 * max over
@@ -263,8 +323,10 @@ class NSLevel:
         if not self.params.is_incompressible:
             return state
         vel = state.vel
-        for _ in range(num_proj):
-            vel, _, _ = self.projector.project_cc(vel, self.vel_bcs_trace)
+        with self._bound_time_bcs(state.time):
+            for _ in range(num_proj):
+                vel, _, _ = self.projector.project_cc(vel,
+                                                      self.vel_bcs_trace)
         return dataclasses.replace(state, vel=vel)
 
     def initialize_pressure(self, state: NSState, dt: float,
@@ -495,12 +557,19 @@ class NSLevel:
         A dict passed as `diag` receives "max_mac_div", the max
         |divergence| of the projected advecting velocity (a 0-d tensor; of
         the last stage's under RK3)."""
+        dt = float(dt)
+        if not self._time_bcs:
+            return self._advance_inner(state, dt, diag)
+        with self._bound_time_bcs(state.time + 0.5 * dt):
+            return self._advance_inner(state, dt, diag)
+
+    def _advance_inner(self, state: NSState, dt: float,
+                       diag: Optional[dict]) -> NSState:
         p = self.params
         if p.update_scheme == "rk3":
             return advance_rk3(self, state, dt, diag=diag)
         grid = self.grid
         ndim = grid.ndim
-        dt = float(dt)
 
         grav = self._gravity_source(state.scalars)
         tidal = None
@@ -639,9 +708,9 @@ class NSLevel:
     def cell_divergence(self, state: NSState):
         """Per-cell mapped divergence of the face-averaged CC velocity."""
         u_mapped = self.geo.to_mapped(state.vel)
+        bcs = bind_bcs_time(self.vel_bcs_trace, state.time)
         fluxes = tuple(
-            cc_to_fc(self.geo.mult_by_J(u_mapped[d]), d, self.grid,
-                     self.vel_bcs_trace[d])
+            cc_to_fc(self.geo.mult_by_J(u_mapped[d]), d, self.grid, bcs[d])
             for d in range(self.grid.ndim))
         return mac_divergence(fluxes, self.geo)
 

@@ -11,11 +11,13 @@ Scaling conventions (flux form):
     subtracted at CC.
 
 The pressure solver is the `method` knob: "fft" (the spectral direct
-solve), "mg" (LevelMultigrid), "bicgstab", or "auto" (spectral where it
-applies, else multigrid).  A solve with the altered metric of implicit
-gravity (`jgup_deltas`) takes multigrid even where the spectral solve
-exists.  The leptic solver and coarse-fine ghost rings are not ported yet
-(ROADMAP slices 5 and 4).
+solve), "mg" (LevelMultigrid), "bicgstab", "leptic" (the leptic solver
+with its multigrid finisher, solvers/leptic.py; `projection.solver = 2`)
+or "auto" (spectral where it applies, else multigrid; never leptic).  A
+solve with the altered metric of implicit gravity (`jgup_deltas`) takes
+multigrid even where the spectral or the leptic solve exists.  The
+coarse-fine ghost rings of AMR patch levels are not ported yet (ROADMAP
+A.5).
 
 The projections subtract the plain MAC gradient of the potential,
 without the Neumann cross-term zeroing of the operator's gradient, as the
@@ -34,6 +36,7 @@ from somar_tpu_torch.ops.stencil import (
     cc_to_fc, fc_to_cc, mac_divergence, mac_gradient, mac_gradient_prepadded)
 from somar_tpu_torch.solvers.bicgstab import BiCGStabParams, bicgstab
 from somar_tpu_torch.solvers.fft_poisson import FFTPoissonSolver
+from somar_tpu_torch.solvers.leptic import LevelLepticSolver
 from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
 from somar_tpu_torch.solvers.poisson_op import PoissonOp
 
@@ -48,7 +51,7 @@ class LevelProjector:
     """Pressure Poisson solves and projections on one level; the MAC and
     the CC projection share one solver."""
 
-    METHODS = ("fft", "mg", "bicgstab")
+    METHODS = ("fft", "mg", "bicgstab", "leptic")
 
     def __init__(self, geo: LevelGeometry, mg_params: MGParams = MGParams(),
                  method: str = "auto", dtype=torch.float32,
@@ -70,14 +73,12 @@ class LevelProjector:
         if method == "auto":
             method = "fft" if FFTPoissonSolver.supports(geo, self.phi_bcs) \
                 else "mg"
-        if method == "leptic":
-            raise NotImplementedError(
-                "the leptic pressure solver is ported in slice 5, see "
-                "ROADMAP")
         if method not in self.METHODS:
             raise ValueError(f"unknown pressure solver {method!r}")
         self.fft = (FFTPoissonSolver(geo, self.phi_bcs, dtype)
                     if method == "fft" else None)
+        self.leptic = (LevelLepticSolver(geo, self.phi_bcs, dtype=dtype)
+                       if method == "leptic" else None)
         self.method = method
 
     @property
@@ -111,6 +112,9 @@ class LevelProjector:
     def _solve_by_method(self, rhs, phi0, purpose, jgup_deltas):
         if self.method == "fft" and jgup_deltas is None:
             return self.fft.solve(rhs), (1, 0.0)
+        if self.method == "leptic" and jgup_deltas is None:
+            phi, (it, rr, _) = self.leptic.solve_with_fallback(rhs, phi0)
+            return phi, (it, rr)
         if self.method == "bicgstab":
             mp = self._params_for(purpose)
             bp = BiCGStabParams(eps=mp.bottom_eps, imax=mp.bottom_imax,

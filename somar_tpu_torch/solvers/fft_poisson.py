@@ -161,7 +161,8 @@ class FFTPoissonSolver:
 
         def hom_end(b):
             return (b.type in (BCType.NEUMANN, BCType.DIRICHLET, BCType.CF)
-                    and not callable(b.value) and float(b.value) == 0.0)
+                    and not callable(b.value) and np.ndim(b.value) == 0
+                    and float(b.value) == 0.0)
 
         for d in range(geo.grid.ndim):
             lo, hi = bcs.lo[d], bcs.hi[d]

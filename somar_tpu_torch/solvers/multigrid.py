@@ -10,7 +10,10 @@
   applied automatically for singular (all-Neumann/periodic) problems.
   Both are plain tensor code, as the JAX package leaves them to XLA.
 * Coarse-level metrics are re-derived from the GeoSource on the coarsened
-  grid; residuals restrict J-weighted (volume-weighted) on mapped levels.
+  grid, or, for an array-defined (raw) geometry such as the leptic
+  solver's flattened level, coarsened as arrays
+  (geometry/raw_geometry.py); residuals restrict J-weighted
+  (volume-weighted) on mapped levels.
 * The V/W-cycle recursion is a Python recursion over the static hierarchy;
   the outer iteration is a Python loop on the residual norm with the
   imin/imax/eps/hang semantics of AMRMG.*, reading one scalar per V-cycle.
@@ -20,8 +23,7 @@ ones), 'jacobi', 'line' (vertical tridiagonal line relaxation, for strongly
 anisotropic levels), or 'auto' (line where the metric's vertical coupling
 dominates).  `solve(jgup_deltas=...)` solves with the altered metric of
 implicit gravity: one delta per MG level, whose kernel weights each level
-probes once per solve.  Array-defined (raw, AMR) coarse metrics are not
-ported yet.
+probes once per solve.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from somar_tpu_torch.core.bc import FieldBCs
 from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.level_geometry import (
     LevelGeometry, build_level_geometry)
+from somar_tpu_torch.geometry.raw_geometry import (
+    RawGeoSource, coarsen_raw_geometry)
 from somar_tpu_torch.solvers.bicgstab import BiCGStabParams, bicgstab
 from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.poisson_op import PoissonOp
@@ -199,12 +203,16 @@ class LevelMultigrid:
         self.dtype = dtype
         self.ratios = semicoarsening_schedule(geo.grid, params.max_depth)
         self.ops: List[PoissonOp] = [PoissonOp(geo, bcs)]
-        g = geo.grid
+        raw = isinstance(geo.geo, RawGeoSource)
+        g, lg = geo.grid, geo
         for ratio in self.ratios:
             g = g.coarsen(ratio)
-            self.ops.append(PoissonOp(
-                build_level_geometry(g, geo.geo, device=geo.device,
-                                     dtype=dtype), bcs))
+            # array-defined coefficients coarsen as arrays; a map's are
+            # re-derived on the coarse grid
+            lg = (coarsen_raw_geometry(lg, ratio) if raw else
+                  build_level_geometry(g, geo.geo, device=geo.device,
+                                       dtype=dtype))
+            self.ops.append(PoissonOp(lg, bcs))
         self.depth = len(self.ops)
         self.bcs_singular = self.ops[0].bcs_singular()
         self.modes = [self._level_mode(op) for op in self.ops]

@@ -1,7 +1,7 @@
 """Stratification utilities (PyTorch port of `somar_tpu.utils.strat`):
 N^2 and the vertical normal modes on the host in numpy/scipy, computed
-once per level like the metric, and the gradient Richardson number of a
-state in torch.
+once per level like the metric (cached per column by `StructurePool`),
+and the gradient Richardson number of a state in torch.
 
 The vertical normal-mode problem  phi'' = -(N^2 / c^2) phi,
 phi(0) = phi(-H) = 0, discretized on cell centers, is the generalized
@@ -10,7 +10,7 @@ symmetric problem -D2 phi = (1/c^2) diag(N^2) phi.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -66,3 +66,23 @@ def gradient_richardson_number(vel, b_total, geo, eps: float = 1e-12):
     nsq_loc = -ddz(b_total)
     shear2 = sum(ddz(vel[m]) ** 2 for m in range(geo.ndim)) + eps
     return nsq_loc / shear2
+
+
+class StructurePool:
+    """Cache of the vertical structure (c, phi, dphi/dz, N^2) per
+    (profile, z0, nz, dz, nmodes): c and phi as solve_vert_eigen_problem
+    returns them, dphi/dz by centred differences."""
+
+    def __init__(self):
+        self._cache: Dict = {}
+
+    def get(self, background, z0: float, nz: int, dz: float,
+            nmodes: int = 1):
+        key = (id(background), round(z0, 12), nz, round(dz, 12), nmodes)
+        if key not in self._cache:
+            z = z0 + (np.arange(nz) + 0.5) * dz
+            nsq = compute_bv_freq(background, z)
+            c, phi = solve_vert_eigen_problem(nsq, dz, nmodes)
+            dphi = np.gradient(phi, dz, axis=1)
+            self._cache[key] = (c, phi, dphi, nsq)
+        return self._cache[key]

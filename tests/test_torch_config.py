@@ -289,11 +289,16 @@ def test_make_problem_matches_jax(name):
 
 
 def test_unported_problems_raise():
+    """Every ibc.problem is ported now: the six that used to raise build
+    the JAX package's class with its parameters (tests/test_torch_problems
+    .py holds their fields)."""
     for t in (0, 3, 5, 6, 7, 8):
-        tctx = TContext.from_parmparse(TPP.from_string(
-            LOCK_2D + f"ibc.problem = {t}\n"))
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            tctx.new_problem()
+        deck = LOCK_2D + f"ibc.problem = {t}\n"
+        jctx, tctx = _contexts(deck)
+        jp, tp = jctx.new_problem(), tctx.new_problem()
+        assert type(tp).__name__ == type(jp).__name__
+        for attr in ("num_scalars", "use_background_scalar"):
+            assert getattr(tp, attr) == getattr(jp, attr)
 
 
 @pytest.mark.parametrize("name,direct", [

@@ -385,15 +385,20 @@ def test_flux_divergence_padded():
 
 
 def test_unported_advection_options_raise():
+    """The PLM, central-flux and high-order-limiter options are ported:
+    they trace as the JAX package's plain path does
+    (tests/test_torch_advection_options.py holds every option)."""
     j, t = _trace_inputs(32)
     tsb = tbc.FieldBCs.from_periodic(t["geo"].grid, tbc.BC.extrap(1))
-    for params in (tgd.AdvectionParams(normal_pred_order=1),
-                   tgd.AdvectionParams(use_upwinding=False),
-                   tgd.AdvectionParams(use_high_order_limiter=True)):
-        with pytest.raises(NotImplementedError):
-            tgd.trace_face_states(t["s"], None, t["adv_pad"], None, 0.02,
-                                  t["geo"], tsb, params, u_pad=t["u_pad"],
-                                  padded=True)
+    jsb = jbc.FieldBCs.from_periodic(j["geo"].grid, jbc.BC.extrap(1))
+    for kw in (dict(normal_pred_order=1), dict(use_upwinding=False),
+               dict(use_high_order_limiter=True)):
+        _close(tgd.trace_face_states(t["s"], None, t["adv_pad"], None, 0.02,
+                                     t["geo"], tsb, tgd.AdvectionParams(**kw),
+                                     u_pad=t["u_pad"], padded=True),
+               jgd.trace_face_states(j["s"], None, j["adv_pad"], None, 0.02,
+                                     j["geo"], jsb, jgd.AdvectionParams(**kw),
+                                     u_pad=j["u_pad"], padded=True))
 
 
 # --------------------------------------------------------------------------

@@ -4,8 +4,10 @@ altered metric and the stratification utilities among them), builds and
 steps a level on the CPU with the spectral and with the multigrid pressure
 solver, steps the mapped implicit-gravity BeamGeneration level, runs a
 tiny input deck through RunDriver and through the command line's main
-function (with an RK3 step), and has imported neither jax nor the JAX
-package."""
+function (with an RK3 step), builds every ibc.problem from a deck and
+steps VortexStreet with a ramped inflow, HorizConv, PLM advection with
+central fluxes and the leptic pressure solver, traces a batch, filters a
+field, and has imported neither jax nor the JAX package."""
 
 import os
 import subprocess
@@ -65,6 +67,44 @@ with tempfile.TemporaryDirectory() as tmp:
                  "amr.maxsteps=1", "amr.updateScheme=2"]) == 0
     assert os.path.exists(os.path.join(tmp, "chkpt_final.hdf5"))
     os.chdir("/")
+from somar_tpu_torch.core.grid import Grid
+from somar_tpu_torch.geometry.geo_source import CartesianMap
+from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+from somar_tpu_torch.physics import godunov
+from somar_tpu_torch.physics.navier_stokes import NSLevel, NSParams
+from somar_tpu_torch.problems import VortexStreet
+from somar_tpu_torch.utils.filters import shapiro_filter
+small = ("amr.nx = 16 8\namr.length = 4 1\namr.nx_offset = 0 -8\n"
+         "ibc.useBackgroundScalar = 1\namr.viscosity = 1e-3\n"
+         "amr.scal_diffusion_coeffs = 1e-3\namr.fixed_dt = 0.01\n")
+for t in range(9):
+    ctx = ProblemContext.from_parmparse(ParmParse.from_string(
+        small + f"ibc.problem = {t}\n"
+        + ("projection.solver = 2\n" if t == 1 else "")
+        + ("advection.normalPredOrderScal = 1\nadvection.useUpwindingScal"
+           " = 0\n" if t == 3 else "")))
+    lev = NSLevel(build_level_geometry(ctx.base_grid(),
+                                       ctx.new_geo_source(), device="cpu",
+                                       dtype=ctx.ns.dtype),
+                  ctx.new_problem(), ctx.ns)
+    st = lev.advance(lev.post_initialize(lev.initial_state()), 0.01)
+    assert bool(torch.isfinite(st.vel).all()), t
+g = Grid(nx=(16, 8), dx=(0.25, 0.125), periodic=(False, True))
+geo = build_level_geometry(g, CartesianMap(), device="cpu")
+lev = NSLevel(geo, VortexStreet(inflow_vel=(1.0, 0.0), ramp_time=0.1),
+              NSParams(nu=1e-3, gravity_method=0))
+st = lev.advance(lev.post_initialize(lev.initial_state()), 0.01)
+assert lev._time_bcs and bool(torch.isfinite(st.vel).all())
+u_pad = [godunov.fill_ghosts_cc(st.vel[d], g, lev.vel_bcs_trace[d].at_time(
+    0.0), 4) for d in range(2)]
+adv = tuple(godunov.pad_valid_faces(torch.zeros(g.fc_shape(d)), g, d)
+            for d in range(2))
+faces = godunov.trace_face_states_batched(
+    [st.scalars[0], st.lam], None, [lev.scal_bcs, lev.lam_bcs], adv, 0.01,
+    geo, godunov.AdvectionParams(normal_pred_order=0), u_pad)
+assert faces[0].shape[0] == 2
+assert bool(torch.isfinite(shapiro_filter(st.vel[0], g,
+                                          lev.lam_bcs)).all())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "somar_tpu" or m.startswith("somar_tpu."))

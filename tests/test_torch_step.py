@@ -219,8 +219,9 @@ def test_unported_configurations_raise():
     geo = tgeo(TGrid(nx=(16, 8), dx=(1 / 16, 1 / 8)), TCartesian(),
                device="cpu")
     prob = TLock(pert_amp=0.0)
-    with pytest.raises(NotImplementedError):
-        TLevel(geo, prob, TParams(pressure_solver="leptic"))
+    # the leptic pressure solver is ported (tests/test_torch_leptic.py)
+    assert TLevel(geo, prob, TParams(pressure_solver="leptic")) \
+        .projector.method == "leptic"
     # the RK3 scheme is ported (tests/test_torch_rk3.py)
     assert TLevel(geo, prob, TParams(update_scheme="rk3")).params \
         .update_scheme == "rk3"
@@ -233,5 +234,9 @@ def test_unported_configurations_raise():
         def scalar_bcs(self, grid):
             return FieldBCs.from_periodic(grid, BC.dirichlet(lambda t: t))
 
-    with pytest.raises(NotImplementedError):
-        TLevel(geo, TimeBCs(), TParams())
+    # time-dependent BC values are ported: bound at the step's time
+    level = TLevel(geo, TimeBCs(), TParams())
+    assert level._time_bcs
+    state = level.advance(level.post_initialize(level.initial_state()),
+                          0.01)
+    assert torch.isfinite(state.scalars).all()
