@@ -8,9 +8,8 @@ coordinate map (`new_geo_source`) and the problem (`new_problem`).
 
 `amr.precision = 64` selects `torch.float64` for `NSParams.dtype`; no
 process-wide switch is flipped (the JAX package turns on jax x64 there).
-The per-solver multigrid blocks of AMR, `syncProjection_*` and `VD_*`, are
-read into the context (`mg_sync`, `mg_vd`) but not passed into NSParams:
-the port's NSParams has no such fields until AMR is ported (ROADMAP A.5).
+The per-solver multigrid blocks of AMR, `syncProjection_*` and `VD_*`, go
+into NSParams (`mg_sync`, `mg_vd`) as in the JAX package.
 
 Enums: CoordMap 0=Cartesian, 1=Twisted, 2=BeamGenerator, 4=Cylindrical,
 5=Ledge, 8=DEM; ProblemType 0=AdvectionTest, 1=LockExchange,
@@ -206,10 +205,6 @@ class ProblemContext:
     sponge_widths_lo: Tuple[float, ...] = (0.0, 0.0, 0.0)
     sponge_widths_hi: Tuple[float, ...] = (0.0, 0.0, 0.0)
     sponge_time_coeff: float = 15.0
-    #: the syncProjection_* and VD_* multigrid blocks (AMR only; not in
-    #: NSParams until AMR is ported, ROADMAP A.5)
-    mg_sync: Optional[MGParams] = None
-    mg_vd: Optional[MGParams] = None
 
     # ------------------------------------------------------------ factory
     @classmethod
@@ -438,6 +433,7 @@ class ProblemContext:
             advection_scal=adv_scal,
             mg=mg,
             mg_mac=read_mg("MACprojection"),
+            mg_sync=read_mg("syncProjection"), mg_vd=read_mg("VD"),
             mg_cc=read_mg("CCprojection"),
             mg_viscous=read_mg("viscous"),
             mg_diffusive=read_mg("diffusive"),
@@ -482,7 +478,6 @@ class ProblemContext:
         tidal_u0 = (tuple(tidal_u0) + (0.0, 0.0, 0.0))[:3]
         return cls(
             amr=amr, ns=ns, plot=plot,
-            mg_sync=read_mg("syncProjection"), mg_vd=read_mg("VD"),
             coord_map=pp.get_int("geometry.coordMap", 0),
             problem=pp.get_int("ibc.problem", 1),
             pert=tuple(pp.get_real_vect("geometry.perturbations", ndim,

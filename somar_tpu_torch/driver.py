@@ -21,7 +21,10 @@ Besides compute_dt's one read a step, the loop reads the state's time on
 the host (its end condition, the step line, the plot period), each read
 counted by `solvers/host_reads.read_scalars`.
 
-Limits: `amr.maxlevel >= 1` (AMR, ROADMAP A.5) raises; the run stays on
+Limits: `amr.maxlevel >= 1` raises (RunDriver, the CLI and the
+checkpoints of an AMR run are slice 10 of the port, ROADMAP A.5; the
+two-level hierarchy of slice 9 runs through
+`entry.amr_hierarchy_from_context` and `entry.run_amr`); the run stays on
 the one device it is given (the JAX driver's multi-device decomposition
 is `parallel/`, ROADMAP A.7); there is no CPU fallback: without
 device="cpu" the run is on the GPU or raises.
@@ -58,8 +61,9 @@ class RunDriver:
     def __init__(self, ctx, out_dir: str = ".", device="cuda"):
         if ctx.amr.max_level >= 1:
             raise NotImplementedError(
-                f"amr.maxlevel = {ctx.amr.max_level}: AMR is not ported yet "
-                "(ROADMAP A.5); use amr.maxlevel = 0")
+                f"amr.maxlevel = {ctx.amr.max_level}: RunDriver with AMR is "
+                "slice 10 of the port (ROADMAP A.5); use amr.maxlevel = 0, "
+                "or entry.amr_hierarchy_from_context and entry.run_amr")
         self.ctx = ctx
         self.out_dir = out_dir
         self.device = require_device(device)

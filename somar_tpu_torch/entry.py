@@ -8,6 +8,9 @@ geometries between the two packages.
     state = run(level, level.initial_state(), nsteps=10)
     level, grid = build_beam_level(640, 512, device="cuda")
     level, grid = build_vortex_level(1024, 512, ramp_time=1.0, device="cuda")
+    h = build_amr_hierarchy(64, 96, 64, ratio=(4, 1, 1), device="cuda")
+    s0, fine, origin = place_amr(h)
+    s0, fine = run_amr(h, s0, fine, origin, dt=0.01, nsteps=10)
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from somar_tpu_torch.amr.hierarchy import SLICE10, AMRHierarchy
+from somar_tpu_torch.amr.tagging import TagParams
 from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.bathymetric import BeamGeneratorMap
 from somar_tpu_torch.geometry.geo_source import CartesianMap
@@ -128,6 +133,107 @@ def build_vortex_level(nx: int = 1024, ny: int = 512, *,
     return NSLevel(geo, prob, params), grid
 
 
+#: the tag parameters of the AMR lock exchange: stand-ins (the JAX
+#: package's AMR tests use them, tests/test_amr.py:84-98) until the shipped
+#: deck inputs.LockExchange_Cartesian3D.machine is in the repository
+AMR_TAG_PARAMS = TagParams(buoyancy_tag_tol=0.2, tags_grow=1)
+
+
+def build_amr_hierarchy(nx: int, ny: int | None, nz: int,
+                        ratio=(4, 1, 1), *, device="cuda",
+                        dtype=torch.float32, pressure_solver: str = "auto",
+                        mg: MGParams = MGParams(),
+                        tag_params: TagParams = AMR_TAG_PARAMS,
+                        **hierarchy_kw) -> AMRHierarchy:
+    """The lock exchange of `build_level` (15 x [2 x] 2, nu = kappa = 1e-4,
+    explicit gravity, CN, CFL 0.9; 2D (x, z) with ny = None) as the base of
+    a two-level hierarchy with one refined patch at `ratio` (per logical
+    direction), tagged by `tag_params` (buoyancy_tag_tol 0.2, tags_grow 1).
+    hierarchy_kw go to AMRHierarchy (e.g. do_sync_projection,
+    sync_composite_iters).  Runs on the GPU unless `device` says
+    otherwise, and raises without one."""
+    level, grid = build_level(nx, nz, ny, device=device, dtype=dtype,
+                              pressure_solver=pressure_solver, mg=mg)
+    if len(ratio) != grid.ndim:
+        raise ValueError(f"ratio {ratio} for a {grid.ndim}D base level")
+    return AMRHierarchy(level.geo, level.problem, level.params,
+                        ratio=tuple(ratio), tag_params=tag_params,
+                        **hierarchy_kw)
+
+
+def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
+    """The two-level hierarchy of a deck: the amr.* keys that the JAX
+    driver reads (somar_tpu/driver.py:40-85) for amr.maxlevel = 1.  Keys
+    that select what slice 10 of the port's AMR adds (amr.maxlevel > 1,
+    amr.max_patches != 1, refluxing, post-regrid smoothing, the VD
+    correction) raise NotImplementedError; amr.regrid_intervals is not
+    read (the placement stays fixed)."""
+    a = ctx.amr
+    if a.max_level != 1:
+        raise (NotImplementedError(f"amr.maxlevel = {a.max_level} is "
+                                   f"{SLICE10}") if a.max_level > 1 else
+               ValueError("amr.maxlevel = 0 has no refined level: use "
+                          "RunDriver"))
+    if a.max_patches != 1:
+        raise NotImplementedError(f"amr.max_patches = {a.max_patches} is "
+                                  f"{SLICE10}")
+    if a.advective_momentum_reflux or a.advective_scalar_reflux \
+            or a.advective_lambda_reflux or a.implicit_scalar_reflux \
+            or a.implicit_momentum_reflux:
+        raise NotImplementedError(f"refluxing is {SLICE10}")
+    if a.regrid_smoothing_coeff > 0.0:
+        raise NotImplementedError(f"post-regrid smoothing is {SLICE10}")
+    if a.apply_vd_correction and a.eta_lambda > 0.0:
+        raise NotImplementedError(f"the VD correction is {SLICE10}")
+    grid = ctx.base_grid()
+    geo = build_level_geometry(grid, ctx.new_geo_source(), device=device,
+                               dtype=ctx.ns.dtype)
+    tags = TagParams(
+        buoyancy_tag_tol=a.buoyancy_tag_tol, vel_tag_tol=a.vel_tag_tol,
+        magvort_tag_quota=a.magvort_tag_quota,
+        pressure_tag_tol=a.pressure_tag_tol, vort_tag_tol=a.vort_tag_tol,
+        do_ri_tagging=a.do_ri_tagging, ri_tag_tol=a.ri_tag_tol,
+        tags_grow=a.tags_grow, fill_ratio=a.fill_ratio,
+        block_factor=a.block_factor, vert_extrude=a.vert_extrude_tags)
+    return AMRHierarchy(
+        geo, ctx.new_problem(), ctx.ns, ratios=list(a.ref_ratios[:1]),
+        tag_params=tags, num_patches=a.max_patches,
+        use_subcycling=a.use_subcycling, max_grid_size=a.max_grid_size,
+        do_sync_projection=(a.do_sync_projection
+                            and a.apply_sync_correction),
+        grid_buffer_size=a.grid_buffer_size,
+        sync_projection_iters=a.sync_projection_iters,
+        sync_composite_iters=a.sync_composite_iters)
+
+
+def place_amr(h: AMRHierarchy, s0: Optional[NSState] = None,
+              init_projection: bool = True):
+    """The bench's set-up of a hierarchy: the base level's initial state
+    post-initialized (unless s0 is given), the patch placed once from its
+    tags and filled, then one composite initial projection.  Returns (s0,
+    patch state, origin)."""
+    if s0 is None:
+        s0 = h.level0.post_initialize(h.level0.initial_state())
+    (fine,), (origin,) = h.initial_patch_states(s0)
+    if init_projection:
+        s0, (fine,) = h.init_project(s0, fine, origin)
+    return s0, fine, origin
+
+
+def run_amr(h: AMRHierarchy, s0: NSState, fine: NSState, origin, dt: float,
+            nsteps: int,
+            on_step: Optional[Callable[[int, NSState, NSState], None]] = None
+            ):
+    """`nsteps` coarse steps of length dt at the fixed patch origin (the
+    JAX package's AMR bench path).  on_step(i, s0, fine) is called after
+    step i.  Returns (s0, fine)."""
+    for i in range(nsteps):
+        s0, fine = h.advance(s0, fine, origin, dt)
+        if on_step is not None:
+            on_step(i, s0, fine)
+    return s0, fine
+
+
 def run(level: NSLevel, state: NSState, nsteps: int,
         on_step: Optional[Callable[[int, NSState, float], None]] = None
         ) -> NSState:
@@ -166,6 +272,18 @@ def ns_state_from_numpy(fields: Dict[str, np.ndarray], device="cuda",
         name: torch.tensor(np.array(fields[name]), dtype=dtype,
                            device=device)
         for name in STATE_FIELDS})
+
+
+def amr_states_from_numpy(base: Dict[str, np.ndarray],
+                          fine: Dict[str, np.ndarray], origin,
+                          device="cuda", dtype=torch.float32):
+    """(base state, patch state, origin) of a two-level hierarchy on
+    `device` from host arrays (e.g. a JAX hierarchy's states read out with
+    np.asarray per field, and its patch origin): the origin becomes a host
+    int64 array per array axis."""
+    return (ns_state_from_numpy(base, device=device, dtype=dtype),
+            ns_state_from_numpy(fine, device=device, dtype=dtype),
+            np.asarray(origin, dtype=np.int64).copy())
 
 
 def ns_state_to_numpy(state: NSState) -> Dict[str, np.ndarray]:

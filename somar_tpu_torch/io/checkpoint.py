@@ -23,7 +23,8 @@ Chombo-format (VisIt-readable): `write_chombo_plotfile`.
 
 Single level only: the AMR arguments of the JAX functions (fine states,
 hierarchies, patch origins, weights, parent selections) raise
-NotImplementedError until AMR is ported (ROADMAP A.5).
+NotImplementedError: AMR checkpoints and plot files are slice 10 of the
+port (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def _no_amr(**kw):
     given = sorted(k for k, v in kw.items() if v is not None)
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: AMR checkpoints and plot files are not "
-            "ported yet (ROADMAP A.5)")
+            f"{', '.join(given)}: AMR checkpoints and plot files are slice "
+            "10 of the port (ROADMAP A.5)")
 
 
 # ---------------------------------------------------------------------------

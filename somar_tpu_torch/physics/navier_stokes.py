@@ -23,6 +23,10 @@ V-cycle and one per BiCGStab iteration (solvers/host_reads.py).
 With update_scheme = "rk3" the step is the SSP-RK3 method of lines of
 physics/rk3.py instead.
 
+AMR patch levels (amr/hierarchy.py) pass `rings` to `advance`: the CF
+ghost potentials of the MAC and the CC projection.  `collect_fluxes`
+returns the advective interface fluxes a flux register accumulates.
+
 Uniform Cartesian levels run with spectral, multigrid, BiCGStab or
 leptic pressure solves and spectral or multigrid heat solves; mapped
 levels with multigrid.  Time-dependent (callable) BC values are bound at
@@ -97,6 +101,8 @@ class NSParams:
     #: per-solver MG/bottom overrides; None falls back to `mg`
     mg_mac: Optional[MGParams] = None
     mg_cc: Optional[MGParams] = None
+    mg_sync: Optional[MGParams] = None    # AMR sync projection
+    mg_vd: Optional[MGParams] = None      # AMR volume-discrepancy solve
     mg_viscous: Optional[MGParams] = None
     mg_diffusive: Optional[MGParams] = None
     is_incompressible: bool = True
@@ -134,7 +140,12 @@ class NSLevel:
     """One level's Navier-Stokes integrator."""
 
     def __init__(self, geo: LevelGeometry, problem: Problem,
-                 params: NSParams = NSParams()):
+                 params: NSParams = NSParams(),
+                 aux_fields: Optional[dict] = None):
+        """aux_fields optionally gives the problem fields derived from the
+        geometry ("nsq_cc", "sponge_ramp", "sponge_targets") as tensors, in
+        place of deriving them from `geo`."""
+        aux = aux_fields or {}
         if params.update_scheme not in ("ppm", "rk3"):
             raise ValueError(f"update_scheme={params.update_scheme!r}: "
                              "use 'ppm' or 'rk3'")
@@ -167,7 +178,9 @@ class NSLevel:
                           or self.scal_bcs.time_dependent)
 
         mg_purposes = {k: v for k, v in (("mac", params.mg_mac),
-                                         ("cc", params.mg_cc))
+                                         ("cc", params.mg_cc),
+                                         ("sync", params.mg_sync),
+                                         ("vd", params.mg_vd))
                        if v is not None}
         self.projector = LevelProjector(geo, mg_params=params.mg,
                                         mg_params_by_purpose=mg_purposes,
@@ -212,13 +225,20 @@ class NSLevel:
 
         self._sponge_ramp = None
         if problem.sponge is not None:
-            self._sponge_ramp = torch.as_tensor(
-                sponge_ramp(grid, problem.sponge), **kw)
-            vt, st = problem.sponge_targets(geo)
-            self._sponge_targets = (torch.as_tensor(vt, **kw),
-                                    torch.as_tensor(st, **kw))
-        self._nsq_cc = (torch.as_tensor(problem.nsq_cc(geo), **kw)
-                        if problem.use_background_scalar else None)
+            if "sponge_ramp" in aux:
+                self._sponge_ramp = aux["sponge_ramp"]
+                self._sponge_targets = aux["sponge_targets"]
+            else:
+                self._sponge_ramp = torch.as_tensor(
+                    sponge_ramp(grid, problem.sponge), **kw)
+                vt, st = problem.sponge_targets(geo)
+                self._sponge_targets = (torch.as_tensor(vt, **kw),
+                                        torch.as_tensor(st, **kw))
+        if "nsq_cc" in aux:
+            self._nsq_cc = aux["nsq_cc"]
+        else:
+            self._nsq_cc = (torch.as_tensor(problem.nsq_cc(geo), **kw)
+                            if problem.use_background_scalar else None)
         # first-mode internal-wave phase speed per direction, for the dt
         # limit
         self._c0i = None
@@ -384,10 +404,12 @@ class NSLevel:
         return _edge_face_avg(J, self.grid.axis(d))
 
     def compute_advecting_velocities(self, state: NSState, src_vel, dt,
-                                     tmp: _StepTemps, u_mapped):
-        """Predict face-centered J u^d at t+dt/2 and MAC-project.  The
-        velocity traces' pre-Riemann states are stashed in tmp.vel_pre for
-        the momentum update."""
+                                     tmp: _StepTemps, u_mapped,
+                                     ring_mac=None):
+        """Predict face-centered J u^d at t+dt/2 and MAC-project (with the
+        CF ghost ring `ring_mac` on a patch level).  The velocity traces'
+        pre-Riemann states are stashed in tmp.vel_pre for the momentum
+        update."""
         grid, geo = self.grid, self.geo
         ndim = grid.ndim
         vel = state.vel
@@ -437,7 +459,7 @@ class NSLevel:
         adv = tuple(adv)
         if self.params.is_incompressible:
             adv, mac_phi, _ = self.projector.project_mac(
-                adv, phi0=state.mac_phi)
+                adv, phi0=state.mac_phi, ring=ring_mac)
             adv = tuple(apply_fc_bc(adv[d], d, grid, self.vel_bcs_trace[d])
                         for d in range(ndim))
         else:
@@ -446,11 +468,13 @@ class NSLevel:
 
     # ------------------------------------------------------------ scalars
     def _advect_update(self, s, src, dt, bcs, params, tmp: _StepTemps,
-                       pre_states=None):
+                       pre_states=None, return_fluxes: bool = False):
         """One field's advection term on the padded path against the
-        projected advecting velocities, cropped once."""
+        projected advecting velocities, cropped once.  return_fluxes: also
+        the interface fluxes J u^d s on the valid faces, as a tuple over
+        directions."""
         form = self.params.nonlinear_differencing_form
-        if pre_states is None and form == 0:
+        if pre_states is None and form == 0 and not return_fluxes:
             # fused path: K3 emits the undivided flux differences directly
             partials = trace_face_states(
                 s, None, tmp.adv_pad, src, dt, self.geo, bcs, params,
@@ -468,6 +492,10 @@ class NSLevel:
         if form == 1:
             # advective form: div(u s) - s div(u)
             out = out - s * mac_divergence(tmp.adv_valid, self.geo)
+        if return_fluxes:
+            return out, tuple(
+                _crop_faces(faces[d], self.grid, d, ADVECT_GROW)
+                * tmp.adv_valid[d] for d in range(self.grid.ndim))
         return out
 
     def _scalar_sources(self, state: NSState, dt):
@@ -491,14 +519,22 @@ class NSLevel:
         return srcs
 
     def get_new_scalars_and_lambda(self, state: NSState, dt,
-                                   tmp: _StepTemps):
-        """Advect + diffuse the scalars and the freestream tracer lambda."""
+                                   tmp: _StepTemps,
+                                   collect: Optional[dict] = None):
+        """Advect + diffuse the scalars and the freestream tracer lambda.
+        With `collect` (a dict), the interface fluxes go to
+        collect["scalars"] (a tuple per component) and collect["lam"]."""
         srcs = self._scalar_sources(state, dt)
         out = []
+        fluxes = []
         for c in range(self.problem.num_scalars):
             s = state.scalars[c]
             adv = self._advect_update(s, srcs[c], dt, self.scal_bcs,
-                                      self.params.advection_scal, tmp)
+                                      self.params.advection_scal, tmp,
+                                      return_fluxes=collect is not None)
+            if collect is not None:
+                adv, fl = adv
+                fluxes.append(fl)
             total_src = -adv + (srcs[c] if srcs[c] is not None else 0.0)
             if self.diff_solvers[c] is not None:
                 s_new, _ = self.diff_solvers[c].update(s, total_src, dt)
@@ -506,17 +542,24 @@ class NSLevel:
                 s_new = s + dt * total_src
             out.append(s_new)
         adv = self._advect_update(state.lam, None, dt, self.lam_bcs,
-                                  self.params.advection_scal, tmp)
+                                  self.params.advection_scal, tmp,
+                                  return_fluxes=collect is not None)
+        if collect is not None:
+            adv, collect["lam"] = adv
+            collect["scalars"] = tuple(fluxes)
         return torch.stack(out), state.lam - dt * adv
 
     # ----------------------------------------------------------- velocity
     def get_new_velocity(self, state: NSState, src_vel, grav, tidal,
-                         sponge_v, grad_p, dt, tmp: _StepTemps):
+                         sponge_v, grad_p, dt, tmp: _StepTemps,
+                         collect: Optional[dict] = None):
         """Conservative momentum advection + forcing + implicit viscosity.
         The momentum fluxes re-upwind the advecting-velocity prediction's
-        pre-Riemann states against the projected velocity."""
+        pre-Riemann states against the projected velocity.  With
+        `collect`, per component and its interface fluxes go to
+        collect["vel"]."""
         ndim = self.grid.ndim
-        if self.params.nonlinear_differencing_form == 0:
+        if self.params.nonlinear_differencing_form == 0 and collect is None:
             advs = momentum_flux_divergence(
                 tmp.vel_pre, tmp.adv_pad, self.geo,
                 upwind=self.params.advection_vel.use_upwinding)
@@ -524,8 +567,12 @@ class NSLevel:
             advs = [self._advect_update(state.vel[m], src_vel[m], dt,
                                         self.vel_bcs_trace[m],
                                         self.params.advection_vel, tmp,
-                                        pre_states=tmp.vel_pre[m])
+                                        pre_states=tmp.vel_pre[m],
+                                        return_fluxes=collect is not None)
                     for m in range(ndim)]
+            if collect is not None:
+                collect["vel"] = tuple(a[1] for a in advs)
+                advs = [a[0] for a in advs]
         new_vel = []
         for m in range(ndim):
             force = grav[m]
@@ -551,23 +598,35 @@ class NSLevel:
 
     # ------------------------------------------------------------ advance
     def advance(self, state: NSState, dt: float,
-                diag: Optional[dict] = None) -> NSState:
+                diag: Optional[dict] = None, rings: Optional[dict] = None,
+                collect_fluxes: bool = False):
         """One time step of length dt (a Python float): the PPM
         predictor-corrector, or the RK3 scheme when update_scheme = "rk3".
         A dict passed as `diag` receives "max_mac_div", the max
         |divergence| of the projected advecting velocity (a 0-d tensor; of
-        the last stage's under RK3)."""
+        the last stage's under RK3).  rings: {"mac": ..., "cc": ...}, the
+        padded-shape CF ghost potentials of a patch level's projections.
+        collect_fluxes: return (state, {"vel", "scalars", "lam": the
+        advective interface fluxes}) for AMR flux registers."""
         dt = float(dt)
         if not self._time_bcs:
-            return self._advance_inner(state, dt, diag)
+            return self._advance_inner(state, dt, diag, rings,
+                                       collect_fluxes)
         with self._bound_time_bcs(state.time + 0.5 * dt):
-            return self._advance_inner(state, dt, diag)
+            return self._advance_inner(state, dt, diag, rings,
+                                       collect_fluxes)
 
     def _advance_inner(self, state: NSState, dt: float,
-                       diag: Optional[dict]) -> NSState:
+                       diag: Optional[dict], rings: Optional[dict] = None,
+                       collect_fluxes: bool = False):
         p = self.params
         if p.update_scheme == "rk3":
-            return advance_rk3(self, state, dt, diag=diag)
+            collect = {} if collect_fluxes else None
+            out = advance_rk3(self, state, dt, collect=collect, rings=rings,
+                              diag=diag)
+            return (out, collect) if collect_fluxes else out
+        ring_mac = rings.get("mac") if rings else None
+        ring_cc = rings.get("cc") if rings else None
         grid = self.grid
         ndim = grid.ndim
 
@@ -601,16 +660,18 @@ class NSLevel:
             fill_ghosts_cc(u_mapped[d], grid, self.vel_bcs_trace[d],
                            ADVECT_GROW) for d in range(ndim)])
         adv_vel, mac_phi = self.compute_advecting_velocities(
-            state, src_vel, dt, tmp, u_mapped)
+            state, src_vel, dt, tmp, u_mapped, ring_mac=ring_mac)
         tmp.adv_valid = adv_vel
         if diag is not None:
             diag["max_mac_div"] = mac_divergence(adv_vel, self.geo).abs().max()
         tmp.adv_pad = tuple(pad_valid_faces(adv_vel[d], grid, d)
                             for d in range(ndim))
 
-        scalars, lam = self.get_new_scalars_and_lambda(state, dt, tmp)
+        collect = {} if collect_fluxes else None
+        scalars, lam = self.get_new_scalars_and_lambda(state, dt, tmp,
+                                                       collect)
         vel = self.get_new_velocity(state, src_vel, grav, tidal, sponge_v,
-                                    grad_p, dt, tmp)
+                                    grad_p, dt, tmp, collect)
         del tmp
 
         cc_phi = state.cc_phi
@@ -622,11 +683,13 @@ class NSLevel:
         elif p.is_incompressible:
             for _ in range(max(1, p.level_projection_iters)):
                 vel, cc_phi, _ = self.projector.project_cc(
-                    vel, self.vel_bcs_trace, phi0=state.cc_phi)
+                    vel, self.vel_bcs_trace, phi0=state.cc_phi,
+                    ring=ring_cc)
             pressure = state.pressure + cc_phi / dt
-        return NSState(vel=vel, scalars=scalars, lam=lam, mac_phi=mac_phi,
-                       cc_phi=cc_phi, pressure=pressure,
-                       e_lambda=state.e_lambda, time=state.time + dt)
+        out = NSState(vel=vel, scalars=scalars, lam=lam, mac_phi=mac_phi,
+                      cc_phi=cc_phi, pressure=pressure,
+                      e_lambda=state.e_lambda, time=state.time + dt)
+        return (out, collect) if collect_fluxes else out
 
     # ------------------------------------------------- implicit gravity
     def _do_ig_projection(self, state: NSState, vel_star, scalars_star, dt):

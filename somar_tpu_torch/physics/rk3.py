@@ -15,8 +15,8 @@ traced field (3 velocity components, the scalars, lambda) along each axis,
 and no K4: the fluxes go through `flux_divergence`.
 
 Selected by NSParams.update_scheme = "rk3" (input amr.updateScheme = 2).
-The AMR arguments (`collect`, `rings`) keep the JAX signature and raise
-until AMR is ported (ROADMAP A.5).
+The AMR arguments (`collect`, `rings`) keep the JAX signature and raise:
+RK3 on AMR patch levels is slice 10 of the port (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -98,8 +98,8 @@ def advance_rk3(level, state, dt: float, collect=None, rings=None,
     as `diag` receives the last stage's "max_mac_div"."""
     if collect is not None or rings is not None:
         raise NotImplementedError(
-            "RK3 flux collection and coarse-fine rings are AMR, not ported "
-            "yet (ROADMAP A.5)")
+            "RK3 flux collection and coarse-fine rings (RK3 on AMR patch "
+            "levels) are slice 10 of the port (ROADMAP A.5)")
     p = level.params
     dt = float(dt)
     grad_p = (level.projector.cc_grad_cart(state.pressure)

@@ -1,6 +1,6 @@
 """Where the time of the port's step goes on one GPU.
 
-    python3 -m somar_tpu_torch.profile_step [--config lock|beam]
+    python3 -m somar_tpu_torch.profile_step [--config lock|beam|amr]
                                             [--nx N --ny N --nz N]
                                             [--pressure-solver auto|mg]
                                             [--scheme ppm|rk3]
@@ -24,6 +24,16 @@ device time, each with its launches per step.  For beam it then
 profiles, alone, the delta-weight probes that set up one implicit-gravity
 CC solve (PoissonOp.delta_kernel_overrides on every MG level).  --trace
 writes a Chrome trace of the profiled window.
+
+`--config amr` builds the two-level hierarchy of
+`entry.build_amr_hierarchy` (base 64x96x64 unless --nx/--ny/--nz say
+otherwise, ratio (4,1,1), the chip smoke's A1 stand-ins), places and
+projects it, takes 2 coarse steps at dt 0.01 and profiles `--steps`
+coarse steps the same way, with the host wall time (synchronized) of
+each part of a coarse step: the base advance, the patch's substep
+advances, the transfers of the substep loop (time interpolation, halo
+fill and overwrite, CF rings, average-down) and the sync projection
+(with the transfers it makes, which are also given apart).
 """
 
 from __future__ import annotations
@@ -100,11 +110,106 @@ def _profile_probes(level, acts, dt):
           f"{sum(counts.values())} launches")
 
 
+#: the parts of a coarse step, as record_function labels
+AMR_PARTS = ("base advance", "patch advance", "transfers (substeps)",
+             "sync projection", "transfers (sync)")
+
+
+def _label_parts(h, walls):
+    """Wrap the hierarchy's parts in record_function ranges (one label
+    each; the coupling's transfers are labelled by where they are called
+    from) that also sum their host wall time, synchronized, into walls."""
+    from somar_tpu_torch.amr import hierarchy as hmod
+    c = h.couplings[0]
+    where = {"sync": False}
+
+    def wrap(obj, name, label):
+        fn = getattr(obj, name)
+
+        def run(*a, **k):
+            lab = label() if callable(label) else label
+            with torch.profiler.record_function(lab):
+                if lab == "sync projection":
+                    where["sync"] = True
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    walls[lab] = walls.get(lab, 0.0) + (
+                        time.perf_counter() - t0)
+                    if lab == "sync projection":
+                        where["sync"] = False
+
+        setattr(obj, name, run)
+
+    transfers = lambda: ("transfers (sync)" if where["sync"]
+                         else "transfers (substeps)")
+    wrap(h.level0, "advance", "base advance")
+    wrap(c.level, "advance", "patch advance")
+    wrap(h, "_sync_project", "sync projection")
+    for name in ("_interp_state_ext", "_overwrite_halo", "_ring",
+                 "average_down"):
+        wrap(c, name, transfers)
+    wrap(hmod, "time_interp", transfers)
+
+
+def _amr_main(args, acts) -> int:
+    """--config amr: see the module docstring."""
+    nx = (args.nx or 64, args.ny or 96, args.nz or 64)
+    h = entry.build_amr_hierarchy(*nx, (4, 1, 1), device="cuda",
+                                  mg=MGParams(eps=1e-5, imax=12))
+    s0, fine, origin = entry.place_amr(h)
+    dt = 0.01
+    s0, fine = entry.run_amr(h, s0, fine, origin, dt, 2)
+    walls = {}
+    _label_parts(h, walls)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        reads0 = read_scalars.count
+        t0 = time.perf_counter()
+        for k in range(args.steps):
+            s0, fine = h.advance(s0, fine, origin, dt * (1.0 + 1e-6 * k))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / args.steps
+        reads = (read_scalars.count - reads0) / args.steps
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    kernels, counts, _ = _device_summary(prof, args.steps)
+    # the parts' ranges appear as device spans too: count kernels only
+    for part in AMR_PARTS:
+        kernels.pop(part, None)
+        counts.pop(part, None)
+    total_ms = sum(kernels.values()) / 1e3 / args.steps
+    c = h.couplings[0]
+    print(f"AMR base {h.grid0.nx} patch ext {c.ext_nx} nt {c.nt}: wall "
+          f"{1e3 * wall:.3f} ms/coarse step (parts synchronized), device "
+          f"{total_ms:.3f} ms/coarse step, device-busy share "
+          f"{total_ms / (1e3 * wall):.3f}, "
+          f"{sum(counts.values()) / args.steps:.0f} launches/coarse step, "
+          f"{reads:.1f} host reads/coarse step")
+    for part in AMR_PARTS:
+        ms = 1e3 * walls.get(part, 0.0) / args.steps
+        print(f"  {part:22s} wall {ms:9.3f} ms per coarse step")
+    groups, group_counts = {}, {}
+    for name, us in kernels.items():
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + us
+        group_counts[g] = group_counts.get(g, 0) + counts[name]
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        ms = us / 1e3 / args.steps
+        print(f"  {g:28s} {ms:9.3f} ms/coarse step  {ms / total_ms:6.1%}  "
+              f"{group_counts[g] / args.steps:8.0f} launches/coarse step")
+    return 0 if kernels else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default="lock", choices=("lock", "beam"))
+    ap.add_argument("--config", default="lock",
+                    choices=("lock", "beam", "amr"))
     ap.add_argument("--nx", type=int, default=None)
-    ap.add_argument("--ny", type=int, default=128)
+    ap.add_argument("--ny", type=int, default=None)
     ap.add_argument("--nz", type=int, default=None)
     ap.add_argument("--pressure-solver", default="auto",
                     choices=("auto", "mg"))
@@ -114,6 +219,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    if args.config == "amr":
+        return _amr_main(args, acts)
 
     if args.config == "beam":
         level, grid = entry.build_beam_level(args.nx or 640, args.nz or 512,
@@ -121,7 +230,8 @@ def main(argv=None) -> int:
         warmup = 3
     else:
         level, grid = entry.build_level(
-            nx=args.nx or 512, nz=args.nz or 128, ny=args.ny, device="cuda",
+            nx=args.nx or 512, nz=args.nz or 128, ny=args.ny or 128,
+            device="cuda",
             pressure_solver=args.pressure_solver,
             mg=MGParams(eps=1e-5, imax=12))
         if args.scheme == "rk3":
@@ -134,8 +244,6 @@ def main(argv=None) -> int:
     dt = dts[-1]
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         reads0 = read_scalars.count
         t0 = time.perf_counter()

@@ -15,9 +15,13 @@ solve), "mg" (LevelMultigrid), "bicgstab", "leptic" (the leptic solver
 with its multigrid finisher, solvers/leptic.py; `projection.solver = 2`)
 or "auto" (spectral where it applies, else multigrid; never leptic).  A
 solve with the altered metric of implicit gravity (`jgup_deltas`) takes
-multigrid even where the spectral or the leptic solve exists.  The
-coarse-fine ghost rings of AMR patch levels are not ported yet (ROADMAP
-A.5).
+multigrid even where the spectral or the leptic solve exists.
+
+AMR patch levels pass `phi_bcs` with CF sides and a `ring`: a padded-shape
+array (one ghost layer) of coarse-fine ghost potentials, zero in the
+interior and on non-CF sides.  The projections fold it into the rhs by
+linearity (`_rhs_ring_correction`) and add it to the ghost fill of the
+gradient (`_grad_with_ring`).
 
 The projections subtract the plain MAC gradient of the potential,
 without the Neumann cross-term zeroing of the operator's gradient, as the
@@ -55,12 +59,15 @@ class LevelProjector:
 
     def __init__(self, geo: LevelGeometry, mg_params: MGParams = MGParams(),
                  method: str = "auto", dtype=torch.float32,
-                 mg_params_by_purpose: Optional[dict] = None):
-        """mg_params_by_purpose: optional {"mac" | "cc": MGParams}
-        overrides; missing purposes fall back to mg_params."""
+                 mg_params_by_purpose: Optional[dict] = None,
+                 phi_bcs: Optional[FieldBCs] = None):
+        """mg_params_by_purpose: optional {"mac" | "cc" | "sync" | "vd":
+        MGParams} overrides; missing purposes fall back to mg_params.
+        phi_bcs: the potential's BCs (default `pressure_bcs`; AMR patch
+        levels give CF sides)."""
         self.geo = geo
         self.grid = geo.grid
-        self.phi_bcs = pressure_bcs(geo.grid)
+        self.phi_bcs = phi_bcs or pressure_bcs(geo.grid)
         self._mg_params = mg_params
         self._mg_by_purpose = dict(mg_params_by_purpose or {})
         self._dtype = dtype
@@ -140,21 +147,33 @@ class LevelProjector:
                                for d in range(grid.ndim)])
         return geo.to_cartesian(grad_cc)
 
-    def _grad(self, phi, jd0=None):
-        """MAC gradient of phi from its BC ghost fill (jd0: the finest
-        level's altered-metric delta)."""
-        return mac_gradient_prepadded(
-            fill_ghosts_cc(phi, self.grid, self.phi_bcs, 1), self.geo,
-            jgup_delta=jd0)
+    # ------------------------------------------------------------- rings
+    def _grad_with_ring(self, phi, ring, jd0=None):
+        """MAC gradient of phi from its BC ghost fill plus the CF ghost
+        ring (None: no ring; jd0: the finest level's altered-metric
+        delta)."""
+        p = fill_ghosts_cc(phi, self.grid, self.phi_bcs, 1)
+        if ring is not None:
+            p = p + ring
+        return mac_gradient_prepadded(p, self.geo, jgup_delta=jd0)
+
+    def _rhs_ring_correction(self, ring, jd0=None):
+        """L(ring-only potential): the inhomogeneous CF ghost data folded
+        into the rhs by linearity."""
+        grad = mac_gradient_prepadded(ring, self.geo, jgup_delta=jd0)
+        return mac_divergence(grad, self.geo)
 
     # ------------------------------------------------------ MAC projection
-    def project_mac(self, fluxes: Sequence, phi0=None):
-        """Exact level projection of MAC fluxes F_d = J u^d.  Returns
-        (corrected fluxes, phi, info).  phi0 (the previous potential)
-        warm-starts an iterative solve."""
+    def project_mac(self, fluxes: Sequence, phi0=None, ring=None):
+        """Exact level projection of MAC fluxes F_d = J u^d, with the CF
+        ghost ring of a patch level when given.  Returns (corrected
+        fluxes, phi, info).  phi0 (the previous potential) warm-starts an
+        iterative solve."""
         div = mac_divergence(fluxes, self.geo)
+        if ring is not None:
+            div = div - self._rhs_ring_correction(ring)
         phi, info = self._solve(div, phi0, purpose="mac")
-        grad = self._grad(phi)
+        grad = self._grad_with_ring(phi, ring)
         out = tuple(f - g for f, g in zip(fluxes, grad))
         return out, phi, info
 
@@ -171,25 +190,28 @@ class LevelProjector:
         Poisson RHS."""
         return mac_divergence(self.cc_fluxes(vel_cart, vel_bcs), self.geo)
 
-    def cc_correction(self, phi, jd0=None):
+    def cc_correction(self, phi, ring=None, jd0=None):
         """Cartesian-basis CC correction velocity
-        to_cartesian(g^{dj} d_j phi |_cc) for a solved potential (jd0: the
-        finest level's altered-metric delta)."""
+        to_cartesian(g^{dj} d_j phi |_cc) for a solved potential (ring: CF
+        ghost data; jd0: the finest level's altered-metric delta)."""
         geo, grid = self.geo, self.grid
-        grad_fc = self._grad(phi, jd0)
+        grad_fc = self._grad_with_ring(phi, ring, jd0)
         grad_cc = torch.stack([fc_to_cc(grad_fc[d], d, grid) * geo.Jinv
                                for d in range(grid.ndim)])
         return geo.to_cartesian(grad_cc)
 
     def project_cc(self, vel_cart, vel_bcs: Sequence[FieldBCs], phi0=None,
                    scale: float = 1.0, purpose: str = "cc",
-                   jgup_deltas=None):
+                   jgup_deltas=None, ring=None):
         """Approximate projection of a CC Cartesian-basis velocity:
         vel -= scale * to_cartesian(g^{dj} d_j phi |_cc), solved with the
-        per-MG-level altered metric jgup_deltas when given.
-        Returns (vel_corrected, phi, info)."""
+        per-MG-level altered metric jgup_deltas and the CF ghost ring when
+        given.  Returns (vel_corrected, phi, info)."""
         jd0 = jgup_deltas[0] if jgup_deltas is not None else None
         div = self.cc_div(vel_cart, vel_bcs)
+        if ring is not None:
+            div = div - self._rhs_ring_correction(ring, jd0)
         phi, info = self._solve(div, phi0, purpose=purpose,
                                 jgup_deltas=jgup_deltas)
-        return vel_cart - scale * self.cc_correction(phi, jd0), phi, info
+        return (vel_cart - scale * self.cc_correction(phi, ring, jd0), phi,
+                info)

@@ -16,7 +16,13 @@ run with
     within 1e-4;
   * one leptic solve on the 32x32x8 box: gauge-free 1e-3;
   * the batched tracer (three fields, 3D, PPM and PLM): the card's
-    kernels against the CPU's twins within 1e-5 of max|output|.
+    kernels against the CPU's twins within 1e-5 of max|output|;
+  * the two-level AMR hierarchy of chip_smoke.py's A0 (3D 32x16x16 at
+    ratio (4,1,1), 2D 48x16 at (4,1)) placed, projected and stepped 3
+    times: card against CPU within 1e-3 of max|field| on both levels, the
+    same origin;
+  * K5 and K6 on every multigrid level of a patch's pressure hierarchy
+    (CF sides, boundary factor 1) against their twins, bitwise.
 """
 
 import numpy as np
@@ -33,7 +39,9 @@ from somar_tpu_torch.geometry.geo_source import CartesianMap
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from somar_tpu_torch.physics import godunov as gd
 from somar_tpu_torch.problems import HorizConv, VortexStreet
+from somar_tpu_torch.ops import gsrb_kernels as gk
 from somar_tpu_torch.solvers.leptic import LepticParams, LevelLepticSolver
+from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
 
 FIELDS = ("vel", "scalars", "lam", "pressure")
 OPTIONS = [dict(), dict(normal_pred_order=1), dict(normal_pred_order=0),
@@ -239,3 +247,46 @@ def test_leptic_solve_on_the_card(cuda_device):
         assert relres < 1e-3
         phis[str(dev)] = phi - phi.mean()
     assert _rel(phis[str(cuda_device)], phis["cpu"]) <= 1e-3
+
+
+AMR_A0 = {"3d": ((32, 16, 16), (4, 1, 1)), "2d": ((48, None, 16), (4, 1))}
+
+
+def _amr_run(device, shape, ratio):
+    h = entry.build_amr_hierarchy(*shape, ratio, device=device,
+                                  mg=MGParams(eps=1e-5, imax=12))
+    s0, fine, origin = entry.place_amr(h)
+    s0, fine = entry.run_amr(h, s0, fine, origin, 0.02, 3)
+    return s0, fine, origin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(AMR_A0))
+def test_amr_hierarchy_on_the_card(cuda_device, case):
+    shape, ratio = AMR_A0[case]
+    card = _amr_run(cuda_device, shape, ratio)
+    cpu = _amr_run("cpu", shape, ratio)
+    assert list(card[2]) == list(cpu[2])
+    for a, b in zip(card[:2], cpu[:2]):
+        for f in FIELDS + ("mac_phi", "cc_phi"):
+            assert _rel(getattr(a, f), getattr(b, f)) <= 1e-3, f
+
+
+@pytest.mark.cuda
+def test_k5_on_a_cf_level_on_the_card(cuda_device):
+    h = entry.build_amr_hierarchy(32, 16, 16, (4, 1, 1), device=cuda_device)
+    lvl = h.couplings[0].level
+    mg = LevelMultigrid(lvl.geo, lvl.projector.phi_bcs, MGParams())
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for op in mg.ops:
+        plan = op._fused_plan
+        assert plan is not None and 1.0 in plan.flo + plan.fhi
+        phi, rhs = (torch.randn(plan.shape, generator=gen,
+                                device=cuda_device) for _ in range(2))
+        for alpha, beta in ((0.0, 1.0), (1.0, -1e-6)):
+            want = gk.gsrb_sweeps_plain(plan, phi, rhs, alpha, beta, 4)
+            got = gk.gsrb_sweeps(plan, phi, rhs, alpha, beta, 4)
+            assert float((got - want).abs().max()) == 0.0
+            got = gk.helm_residual(plan, phi, rhs, alpha, beta)
+            want = gk.helm_residual_plain(plan, phi, rhs, alpha, beta)
+            assert float((got - want).abs().max()) == 0.0

@@ -6,7 +6,7 @@ no JAX compile:
   * ProblemContext: every field, field by field, on the lock exchange 2D
     and 3D, Taylor-Green, BeamGeneration, Ledge, per-solver multigrid
     overrides and a DEM deck (exact; JAX dtypes map to torch.float32 /
-    float64, the JAX NSParams' mg_sync / mg_vd to the port context's);
+    float64);
     amr.precision = 64 against the JAX context built in a subprocess (JAX
     turns on x64 process-wide there), and a garbage precision raising;
   * make_problem and new_geo_source: the same classes and parameters; the
@@ -177,12 +177,8 @@ def _norm(v):
 
 
 def _ctx_dicts(jctx, tctx):
-    """Both contexts as plain dicts, the JAX NSParams' AMR-only blocks
-    moved to the top level where the port keeps them."""
-    want = _norm(jctx)
-    want["mg_sync"] = want["ns"].pop("mg_sync")
-    want["mg_vd"] = want["ns"].pop("mg_vd")
-    return want, _norm(tctx)
+    """Both contexts as plain dicts."""
+    return _norm(jctx), _norm(tctx)
 
 
 def _dem_file(path, ndim):
@@ -344,8 +340,6 @@ def test_precision_64_matches_jax_subprocess():
     assert torch.get_default_dtype() == default
     assert tctx.ns.dtype is torch.float64
     got = _norm(tctx.ns)
-    assert want.pop("mg_sync") == json.loads(json.dumps(_norm(tctx.mg_sync)))
-    want.pop("mg_vd")
     assert json.loads(json.dumps(got)) == want
     assert want["dtype"] == "float64"
 

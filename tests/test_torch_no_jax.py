@@ -7,7 +7,9 @@ tiny input deck through RunDriver and through the command line's main
 function (with an RK3 step), builds every ibc.problem from a deck and
 steps VortexStreet with a ramped inflow, HorizConv, PLM advection with
 central fluxes and the leptic pressure solver, traces a batch, filters a
-field, and has imported neither jax nor the JAX package."""
+field, imports the AMR modules and the clustering library, places and
+steps a two-level hierarchy, and has imported neither jax nor the JAX
+package."""
 
 import os
 import subprocess
@@ -17,6 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
+import numpy as np
 import torch
 torch.set_num_threads(1)
 import somar_tpu_torch
@@ -105,6 +108,18 @@ faces = godunov.trace_face_states_batched(
 assert faces[0].shape[0] == 2
 assert bool(torch.isfinite(shapiro_filter(st.vel[0], g,
                                           lev.lam_bcs)).all())
+import somar_tpu_torch.amr.composite, somar_tpu_torch.amr.flux_register
+import somar_tpu_torch.amr.hierarchy, somar_tpu_torch.amr.tagging
+import somar_tpu_torch.amr.transfer, somar_tpu_torch.native
+from somar_tpu_torch.ops.norms import composite_mapped_sum
+h = entry.build_amr_hierarchy(32, None, 8, (4, 1), device="cpu")
+s0, fine, origin = entry.place_amr(h)
+s0, fine = entry.run_amr(h, s0, fine, origin, 0.02, 1)
+assert bool(torch.isfinite(fine.vel).all()) and h.last_sync_info[0] == 2
+assert bool(torch.isfinite(composite_mapped_sum(
+    h, [s0.scalars[0], fine.scalars[0]], [origin])))
+assert somar_tpu_torch.native.tag_bounding_box(
+    np.ones((2, 3), bool)) is not None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "somar_tpu" or m.startswith("somar_tpu."))
