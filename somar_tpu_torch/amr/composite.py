@@ -36,10 +36,6 @@ from somar_tpu_torch.amr.transfer import (extract_patch, insert_patch,
 class CompositeParams:
     iters: int = 4          # composite passes
     purpose: str = "sync"   # the level solvers' multigrid-parameter key
-    #: FAS tau-correction of the covered base cells
-    use_tau: bool = True
-    #: elliptic reflux of the CF interface in the base equation
-    use_reflux: bool = True
 
 
 class AMRCompositeSolver:
@@ -87,9 +83,8 @@ class AMRCompositeSolver:
         ring = c._ring(phis[0], org)
         res1 = level.projector.op.residual(
             phis[1], rhss[1] - level.projector._rhs_ring_correction(ring))
-        if self.params.use_reflux:
-            res0 = self._reflux_fold(c, level, level0, phis[1], ring,
-                                     phis[0], org, res0, +1.0)
+        res0 = self._reflux_fold(c, level, level0, phis[1], ring, phis[0],
+                                 org, res0, +1.0)
         res0 = torch.where(self._covered_mask(origins),
                            torch.zeros((), dtype=res0.dtype,
                                        device=res0.device), res0)
@@ -98,26 +93,33 @@ class AMRCompositeSolver:
     def _effective_rhss(self, phis, rhss, origins):
         """The base rhs with FAS tau on the covered cells and the lagged
         elliptic reflux at the cells next to the interface."""
+        c = self.h.couplings[0]
+        ring = c._ring(phis[0], origins[0])
+        par = self._tau_corrected(phis, rhss, origins, ring)
+        return [self._lagged_reflux(phis, par, origins, ring), rhss[1]]
+
+    def _tau_corrected(self, phis, rhss, origins, ring):
+        """The base rhs with the FAS tau of the patch's residual written
+        over the covered cells."""
         h = self.h
         c = h.couplings[0]
         level0, level = h.level0, c.level
-        org = origins[0]
-        ring = c._ring(phis[0], org)
-        par = rhss[0]
-        if self.params.use_tau:
-            rf = rhss[1] - (level.projector.op.apply(phis[1])
-                            + level.projector._rhs_ring_correction(ring))
-            Rrf = restrict_average(extract_patch(rf, c.int_start,
-                                                 c.int_shape),
-                                   c.ext_grid, c.ratio)
-            origin_c = c.covered_origin_c(org)
-            tau = extract_patch(level0.projector.op.apply(phis[0]),
-                                origin_c, Rrf.shape) + Rrf
-            par = insert_patch(par, tau, origin_c)
-        if self.params.use_reflux:
-            par = self._reflux_fold(c, level, level0, phis[1], ring,
-                                    phis[0], org, par, +1.0)
-        return [par, rhss[1]]
+        rf = rhss[1] - (level.projector.op.apply(phis[1])
+                        + level.projector._rhs_ring_correction(ring))
+        Rrf = restrict_average(extract_patch(rf, c.int_start, c.int_shape),
+                               c.ext_grid, c.ratio)
+        origin_c = c.covered_origin_c(origins[0])
+        tau = extract_patch(level0.projector.op.apply(phis[0]), origin_c,
+                            Rrf.shape) + Rrf
+        return insert_patch(rhss[0], tau, origin_c)
+
+    def _lagged_reflux(self, phis, par, origins, ring):
+        """par plus the elliptic reflux of the last pass's potentials at
+        the uncovered base cells next to the interface."""
+        h = self.h
+        c = h.couplings[0]
+        return self._reflux_fold(c, c.level, h.level0, phis[1], ring,
+                                 phis[0], origins[0], par, +1.0)
 
     def solve(self, rhss, origins):
         """Composite solve from zero.  rhss: [base rhs, patch rhs];
@@ -130,8 +132,7 @@ class AMRCompositeSolver:
         phis = [torch.zeros_like(r) for r in rhss]
 
         def one_pass(phis):
-            eff = (self._effective_rhss(phis, rhss, origins)
-                   if p.use_tau or p.use_reflux else list(rhss))
+            eff = self._effective_rhss(phis, rhss, origins)
             phi0, _ = h.level0.projector._solve(eff[0], phi0=phis[0],
                                                 purpose=p.purpose)
             rhs_f = eff[1] - c.level.projector._rhs_ring_correction(

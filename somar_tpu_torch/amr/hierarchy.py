@@ -400,8 +400,11 @@ class AMRHierarchy:
     The arguments are the JAX package's; those that select a feature of
     slice 10 (more than one ratio, num_patches != 1, reflux, implicit
     reflux, eta_lambda > 0, post-regrid smoothing) raise
-    NotImplementedError.  grid_buffer_size (the nesting buffer) has
-    nothing to act on with one refined level."""
+    NotImplementedError.  The sync projection's composite solve always
+    takes FAS tau and the elliptic reflux (the JAX defaults
+    sync_use_tau = sync_use_reflux = True); the JAX package's
+    grid_buffer_size (the nesting buffer) has nothing to act on with one
+    refined level and is not an argument."""
 
     def __init__(self, geo0, problem: Problem, params: NSParams,
                  ratio=None, tag_params: TagParams = TagParams(),
@@ -415,10 +418,6 @@ class AMRHierarchy:
                  do_sync_projection: bool = True,
                  sync_projection_iters: int = 1,
                  sync_composite_iters: int = 2,
-                 grid_buffer_size: int = 0,
-                 sync_use_tau: bool = True,
-                 sync_use_reflux: bool = True,
-                 auto_escalate_patches: bool = True,
                  max_auto_patches: int = 8):
         if ratios is None:
             if ratio is None:
@@ -446,9 +445,6 @@ class AMRHierarchy:
         self.do_sync_projection = bool(do_sync_projection)
         self.sync_projection_iters = max(1, int(sync_projection_iters))
         self.sync_composite_iters = max(1, int(sync_composite_iters))
-        self.sync_use_tau = bool(sync_use_tau)
-        self.sync_use_reflux = bool(sync_use_reflux)
-        self.auto_escalate_patches = bool(auto_escalate_patches)
         self.max_auto_patches = max(1, int(max_auto_patches))
         #: (passes, final relative composite residual: a 0-d tensor) of
         #: the last sync or initial projection's composite solve
@@ -581,16 +577,13 @@ class AMRHierarchy:
         rhs0 = mac_divergence(f0, level0.geo)
         f1 = lvl.projector.cc_fluxes(s_f.vel, lvl.vel_bcs_trace)
         rhs1 = mac_divergence(f1, lvl.geo)
-        if self.sync_use_reflux:
-            fr = PatchFluxRegister(c)
-            reg = fr.increment_fine(fr.zeros(), f1, 1.0)
-            reg = fr.increment_coarse(reg, f0, origin)
-            rhs0 = fr.reflux(rhs0, reg, origin, -1.0, level0.geo)
+        fr = PatchFluxRegister(c)
+        reg = fr.increment_fine(fr.zeros(), f1, 1.0)
+        reg = fr.increment_coarse(reg, f0, origin)
+        rhs0 = fr.reflux(rhs0, reg, origin, -1.0, level0.geo)
         solver = AMRCompositeSolver(
             self, CompositeParams(iters=self.sync_composite_iters,
-                                  purpose="sync",
-                                  use_tau=self.sync_use_tau,
-                                  use_reflux=self.sync_use_reflux))
+                                  purpose="sync"))
         phis, self.last_sync_info = solver.solve([rhs0, rhs1], [origin])
         s0 = dataclasses.replace(
             s0, vel=s0.vel - level0.projector.cc_correction(phis[0]))
@@ -629,8 +622,6 @@ class AMRHierarchy:
         widen the patch footprint (patch_frac x 1.5, to 0.95) and return
         True (the caller re-probes).  Where the JAX package would first
         double the patch budget K, this raises (K > 1 is slice 10)."""
-        if not self.auto_escalate_patches:
-            return False
         c = self.couplings[lev]
         if c.tag_coverage[0] <= 0:
             return False

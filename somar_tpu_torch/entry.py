@@ -201,7 +201,6 @@ def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
         use_subcycling=a.use_subcycling, max_grid_size=a.max_grid_size,
         do_sync_projection=(a.do_sync_projection
                             and a.apply_sync_correction),
-        grid_buffer_size=a.grid_buffer_size,
         sync_projection_iters=a.sync_projection_iters,
         sync_composite_iters=a.sync_composite_iters)
 

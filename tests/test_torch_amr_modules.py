@@ -26,7 +26,11 @@ eagerly, in float64 (jax_enable_x64) unless named:
   * entry.amr_hierarchy_from_context against the JAX RunDriver's
     hierarchy from the same deck (footprint, nt, tag parameters, sync
     knobs, the placed origin), and the deck keys of slice 10 raising;
-  * the slice-10 features raise NotImplementedError naming slice 10.
+  * the slice-10 features raise NotImplementedError naming slice 10;
+  * chip_smoke.py's limit on the sync solve's final relres: the sound
+    solve stays below it after each of 3 coarse steps on A0's 3D and 2D
+    hierarchies, and each fault of SYNC_FAULTS (one composite pass, no
+    FAS tau, no lagged elliptic reflux) crosses it (port only).
 """
 
 import dataclasses
@@ -334,8 +338,10 @@ def test_amr_hierarchy_from_context_matches_jax_driver(tmp_path):
     assert dataclasses.asdict(th.tag_params) == dataclasses.asdict(
         jh.tag_params)
     for knob in ("do_sync_projection", "sync_projection_iters",
-                 "sync_composite_iters", "sync_use_tau", "sync_use_reflux"):
+                 "sync_composite_iters"):
         assert getattr(th, knob) == getattr(jh, knob), knob
+    # the port's sync solve always takes FAS tau and the elliptic reflux
+    assert jh.sync_use_tau and jh.sync_use_reflux
     assert th.level0.params.dtype is torch.float64
     js = jh.level0.post_initialize(jh.level0.initial_state())
     ts = entry.ns_state_from_numpy(
@@ -603,3 +609,29 @@ def test_slice10_features_raise(pair):
                                     weights=[np.ones(1)])):
         with pytest.raises(NotImplementedError, match="slice 10"):
             call()
+
+
+# ------------------------------------------------- the sync relres gate
+@pytest.mark.parametrize("fault", ["sound", "one pass", "no tau",
+                                   "no reflux"])
+@pytest.mark.parametrize("case", ["3d", "2d"])
+def test_sync_relres_limit_catches_solver_faults(case, fault):
+    import contextlib
+    import chip_smoke
+    assert fault == "sound" or fault in chip_smoke.SYNC_FAULTS
+    shape, ratio = ((32, 16, 16), (4, 1, 1)) if case == "3d" else \
+        ((48, None, 16), (4, 1))
+    relres = []
+    with contextlib.ExitStack() as stack:
+        kw = ({} if fault == "sound"
+              else chip_smoke.sync_fault(stack, fault))
+        h = entry.build_amr_hierarchy(*shape, ratio, device="cpu",
+                                      mg=TMG(eps=1e-5, imax=12), **kw)
+        s0, fine, origin = entry.place_amr(h)
+        entry.run_amr(h, s0, fine, origin, 0.02, 3,
+                      on_step=lambda i, a, b: relres.append(
+                          float(h.last_sync_info[1])))
+    if fault == "sound":
+        assert max(relres) < chip_smoke.SYNC_RELRES, relres
+    else:
+        assert max(relres) >= chip_smoke.SYNC_RELRES, relres
