@@ -143,8 +143,39 @@ non-zero:
      levels of their diffusive solves against their twins;
  22. A2: the same at base 128x128x128 (the north star's effective
      512x128x128), 1 warm-up and 5 timed coarse steps.
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.
+ 23. R0: AMR decks through RunDriver on the card and on the CPU: R0_DECK
+     (tests/test_driver_io.py's AMR_CFG, 2D 48x16, regrids every 2 steps,
+     amr.fixed_dt unset so level_dts and the dynamic-subcycling factors
+     set each dt), R0_SUBCYCLED (R0_DECK viscous on square cells, whose
+     first coarse step takes the dynamic-subcycling factor 2) and
+     R0_TWO_FRONTS (tests/test_amr.py:504-531's two fronts, 96x12, whose
+     placement doubles K from 1 to 2), 6 coarse steps each: the same K,
+     origins and weights at placement and after every regrid, the same
+     subcycling factors, every field of both levels within 1e-3 (the
+     potentials gauge-free), and on the card the run resumed from its
+     step-3 checkpoint equal to the uninterrupted one (1e-6; K, footprint
+     and origins restored); K = 2 active on the card in R0_TWO_FRONTS,
+     the factor 2 on R0_SUBCYCLED's first step, and on the card every
+     kernel of the 2D AMR path launched;
+ 24. R1: main path 1 as an AMR deck (R1_DECK: base 128^3, ratio (4,1,1),
+     regrids every 5 steps, CFL-limited dt, files every 10, 40 coarse
+     steps) through RunDriver: ms per coarse step (plain and regrid steps
+     apart), seconds per regrid, K, origins and tag coverage at placement
+     and after each regrid, launches and host reads per coarse step,
+     file seconds, peak memory; gates after every coarse step: finite,
+     b in (-0.1, 1.1), the base cells under each active patch equal to
+     its restricted interior (1e-6 of max|b|), the sync relres below
+     3e-2; no tagged cell dropped at placement or after any regrid; then
+     K1-K4 at the padded shapes of every level the run reached and K5-K8
+     on their solver hierarchies against their twins;
+ 25. R2: R1's base with the two fronts extruded in y (R2_DECK,
+     amr.max_grid_size 120), 6 coarse steps: two active 3D patches at
+     placement and after the regrid, the same prints and gates and twins;
+ 26. the command line on R0_DECK in a subprocess: exit 0 and "finished 2
+     steps".
+The line before the last is a JSON object describing each kernel, with
+launches_r0 / launches_r1 / launches_r2 and the per-coarse-step counts of
+R1 and R2; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1527,13 +1558,14 @@ def driver_beam(torch, counters, device, smi, path3, files):
     return launches
 
 
-def cli_phase(device, files, options=()):
+def cli_phase(device, files, options=(), deck=CLI_DECK, label="2D deck"):
     """The command line in a subprocess on the card: a small 2D deck, two
     steps (`options` go before the deck)."""
+    text = deck
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as out:
         deck = os.path.join(out, "inputs.lock2d")
         with open(deck, "w") as f:
-            f.write(CLI_DECK)
+            f.write(text)
         args = list(options) + [deck, "amr.maxsteps=2"]
         cmd = ([sys.executable, "-m", "somar_tpu_torch"] if files is None
                else [sys.executable, "-c", CLI_SHIM]) + args
@@ -1545,7 +1577,8 @@ def cli_phase(device, files, options=()):
                               text=True, timeout=600)
         secs = time.perf_counter() - t0
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    say(f"CLI python -m somar_tpu_torch {' '.join(args)} on {device}"
+    say(f"CLI ({label}) python -m somar_tpu_torch {' '.join(args)} on "
+        f"{device}"
         f"{'' if files is None else ' (files kept in memory)'}: exit "
         f"{proc.returncode} in {secs:.1f} s, last line {tail[0]!r}")
     if proc.returncode != 0 or "finished 2 steps" not in proc.stdout:
@@ -2312,11 +2345,11 @@ def sync_fault(stack, fault):
     if fault == "no tau":
         stack.enter_context(mock.patch.object(
             AMRCompositeSolver, "_tau_corrected",
-            lambda self, phis, rhss, origins, ring: rhss[0]))
+            lambda self, phis, rhss, *_: rhss[0]))
     elif fault == "no reflux":
         stack.enter_context(mock.patch.object(
             AMRCompositeSolver, "_lagged_reflux",
-            lambda self, phis, par, origins, ring: par))
+            lambda self, phis, par, *_: par))
     else:
         raise ValueError(fault)
     return {}
@@ -2585,20 +2618,26 @@ def amr_phase(torch, entry, counters, device, smi, label, shape, ratio,
     return h, launches, m
 
 
-def level_kernel_twins(torch, ck, gk, sgk, h, worst):
-    """K1-K4 at the padded shapes of both levels (ADVECT_GROW ghosts) and
-    K5-K8 on both levels' solver hierarchies (solver_level_twins) against
-    their twins; the worst errors folded into `worst`.  Returns the
-    plan-less solver levels of each level."""
+def levels_kernel_twins(torch, ck, gk, sgk, levels, worst):
+    """K1-K4 at the padded shapes of `levels` ({tag: level}; ADVECT_GROW
+    ghosts) and K5-K8 on each level's solver hierarchies
+    (solver_level_twins) against their twins; the worst errors folded
+    into `worst`.  Returns the plan-less solver levels of each level."""
     from somar_tpu_torch.physics.godunov import ADVECT_GROW
-    levels = {"base": h.level0, "patch": h.couplings[0].level}
     shapes = tuple(tuple(n + 2 * ADVECT_GROW for n in lvl.geo.grid.shape)
                    for lvl in levels.values())
-    for name, err in kernel_parity(torch, ck, h.level0.geo.device.type,
-                                   shapes, ()).items():
+    device = next(iter(levels.values())).geo.device.type
+    for name, err in kernel_parity(torch, ck, device, shapes, ()).items():
         worst[name] = max(worst[name], err)
     return {tag: solver_level_twins(torch, gk, sgk, lvl, tag, worst)
             for tag, lvl in levels.items()}
+
+
+def level_kernel_twins(torch, ck, gk, sgk, h, worst):
+    """levels_kernel_twins on both levels of a hierarchy."""
+    return levels_kernel_twins(torch, ck, gk, sgk,
+                               {"base": h.level0,
+                                "patch": h.couplings[0].level}, worst)
 
 
 def amr_phases(torch, entry, ck, gk, sgk, counters, device, smi, worst):
@@ -2622,6 +2661,422 @@ def amr_phases(torch, entry, ck, gk, sgk, counters, device, smi, worst):
         del h
         out[key] = (launches, m)
         say(f"phase {key.upper()}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 23-26: AMR decks through RunDriver (regrid, K > 1, subcycling, IO)
+# --------------------------------------------------------------------------
+#: R0's first deck: tests/test_driver_io.py:74-93 (AMR_CFG, 2D 48x16, ratio
+#: (4,1), regrids every 2 steps) with amr.fixed_dt unset, so that
+#: level_dts and the dynamic-subcycling factors set each dt; amr.max_dt
+#: caps the first dt (init_dt_multiplier x max_dt), which the viscous
+#: limit at rest would otherwise put at 3.1 (ROADMAP C.10)
+R0_DECK = """
+amr.nx = 48 16
+amr.length = 15.0 2.0
+amr.nx_offset = -24 0
+ibc.problem = 1
+amr.gravityMethod = 1
+amr.viscosity = 0.0001
+amr.scal_diffusion_coeffs = 0.0001
+amr.maxlevel = 1
+amr.refratio_lev0 = 4 1
+amr.regrid_intervals = 2 2
+amr.buoyancy_tag_tol = 0.2
+amr.tags_grow = 1
+amr.max_dt = 0.05
+amr.maxsteps = 6
+amr.final = 10.0
+AMRMG.eps = 1e-5
+AMRMG.imax = 12
+plot.plot_interval = 3
+plot.checkpoint_interval = 3
+amr.verbosity = 0
+"""
+#: R0's second deck: R0_DECK on square cells (dx = dz = 0.3125) with
+#: viscosity 0.1 and init_dt_multiplier 0.4, no amr.max_dt: at rest each
+#: level's dt is its viscous limit, the refined level's 1/16 of the
+#: base's, so the first coarse step (0.4 x the base's) overshoots the
+#: refined level's 4 substeps and takes the dynamic-subcycling factor 2;
+#: later steps are held to 4 x the refined level's dt (factor 1)
+R0_SUBCYCLED = R0_DECK.replace("amr.length = 15.0 2.0",
+                               "amr.length = 15.0 5.0").replace(
+    "amr.viscosity = 0.0001", "amr.viscosity = 0.1").replace(
+    "amr.max_dt = 0.05", "amr.init_dt_multiplier = 0.4")
+#: R0's third deck: the two-front field of tests/test_amr.py:504-531 (2D
+#: 96x12, buoyancy_tag_tol 0.12, tags_grow 1; its patch_frac 0.2 footprint
+#: as amr.max_grid_size 72), amr.max_patches unset: the placement doubles
+#: K from 1 to 2
+R0_TWO_FRONTS = R0_DECK.replace("amr.nx = 48 16", "amr.nx = 96 12").replace(
+    "amr.nx_offset = -24 0", "amr.nx_offset = -48 0").replace(
+    "amr.buoyancy_tag_tol = 0.2", "amr.buoyancy_tag_tol = 0.12") \
+    + "amr.max_grid_size = 72\n"
+#: the two fronts: vertically (and in 3D spanwise) uniform buoyancy lumps
+#: of half-width 0.8 at these x
+FRONTS = (-4.0, 4.0)
+#: R1: main path 1's lengths and physics (D1_DECK) on a 128^3 base with
+#: one refined level at ratio (4,1,1) (the effective 512x128x128 of A2),
+#: the AMR cell's stand-in tags and multigrid parameters, regrids every 5
+#: steps, a CFL-limited dt, files every 10 steps, 40 coarse steps
+R1_DECK = D1_DECK.replace("amr.nx = 512 128 128", "amr.nx = 128 128 128") \
+    .replace("amr.nx_offset = -256 0 0", "amr.nx_offset = -64 0 0") \
+    .replace("amr.maxsteps = 20", "amr.maxsteps = 40") + """
+amr.maxlevel = 1
+amr.refratio_lev0 = 4 1 1
+amr.regrid_intervals = 5
+amr.buoyancy_tag_tol = 0.2
+amr.tags_grow = 1
+AMRMG.eps = 1e-5
+AMRMG.imax = 12
+"""
+#: R2: R1's base with the two fronts extruded in y; amr.max_grid_size 120
+#: (ext 128 fine cells in x) so that two patches fit the 128-cell base
+#: apart (R1's footprint, 94 base cells wide, cannot hold two); 6 coarse
+#: steps, one regrid and its files at step 5
+R2_DECK = R1_DECK.replace("amr.maxsteps = 40", "amr.maxsteps = 6") \
+    .replace("amr.regrid_intervals = 5", "amr.regrid_intervals = 5\n"
+             "amr.max_grid_size = 120") \
+    .replace("plot.plot_interval = 10", "plot.plot_interval = 5") \
+    .replace("plot.checkpoint_interval = 10", "plot.checkpoint_interval = 5")
+#: the kernels of a 2D AMR deck's path (K5 runs on no CF level, ROADMAP
+#: C.18): the advection on both levels, the composite residuals and the
+#: patches' diffusive solves; a 3D deck adds ctu_corr3
+AMR_PATH_2D = ("ppm_predict", "ctu_final", "riemann_fluxdiv",
+               "helm_residual", "stencil_gsrb_sweeps",
+               "stencil_helm_residual")
+#: card against CPU (R0): fields within this fraction of max|field|, the
+#: potentials gauge-free (multigrid stops at a tolerance); a resumed run
+#: against the uninterrupted one: DRIVER_RTOL
+R0_RTOL = MG_STEP_RTOL
+
+
+def with_fronts(torch, drv, centres=FRONTS):
+    """Replace the RunDriver's initial buoyancy by uniform lumps at x in
+    `centres` (the two-front field)."""
+    import numpy as np
+    lvl = drv.level
+    plain = lvl.initial_state
+
+    def fronts():
+        s = plain()
+        x = np.asarray(lvl.geo.phys_coords_cc()[0])
+        b = np.zeros(x.shape, bool)
+        for c in centres:
+            b |= np.abs(x - c) < 0.8
+        scal = s.scalars.clone()
+        scal[0] = torch.as_tensor(b, dtype=scal.dtype,
+                                  device=scal.device).expand_as(scal[0])
+        return dataclasses.replace(s, scalars=scal)
+
+    lvl.initial_state = fronts
+
+
+def patch_avgdown_err(torch, h, s0, fine, origin, weights):
+    """max over the active patches, over b and u, of |base under the
+    patch interior - restricted patch interior| (a 0-d tensor)."""
+    from somar_tpu_torch.amr.transfer import extract_patch, restrict_average
+    c = h.couplings[0]
+    ws = c.patch_weights(weights)
+    errs = []
+    for p, o, w in zip(c.unstack(fine), c.patch_origins(origin), ws):
+        if w is not None and w == 0.0:
+            continue
+        org_c = c.covered_origin_c(o)
+        for coarse, f in ((s0.scalars[0], p.scalars[0]), *zip(s0.vel,
+                                                               p.vel)):
+            want = restrict_average(extract_patch(f, c.int_start,
+                                                  c.int_shape),
+                                    c.ext_grid, c.ratio)
+            errs.append((extract_patch(coarse, org_c, want.shape)
+                         - want).abs().max())
+    return torch.stack(errs).max()
+
+
+def amr_deck_run(torch, deck, device, counters, fronts=False):
+    """A deck through RunDriver with the counts set to 0 just before its
+    run.  Every coarse step (each call of the hierarchy's advance with its
+    subcycling factors) records, on the device, the average-down
+    difference, max|b|, the sync solve's relres, min and max b on both
+    levels and whether every field is finite, and on the host its
+    launches and host reads.  Returns a dict."""
+    import numpy as np
+    from somar_tpu_torch.driver import RunDriver
+    from somar_tpu_torch.solvers.host_reads import read_scalars
+    from somar_tpu_torch.utils.timers import timer
+    timer.reset()
+    drv = RunDriver(context(deck), out_dir=os.getcwd(), device=device)
+    if fronts:
+        with_fronts(torch, drv)
+    h = drv.hierarchy
+    plain_advance = h.advance
+    rows, launches, reads, levels, placed = [], [], [], {}, []
+
+    def advance(*a, **kw):
+        if "nt_mults" not in kw:                 # initialize_pressure
+            return plain_advance(*a, **kw)
+        if not placed:
+            c = h.couplings[0]
+            placed.append(dict(K=c.K, origins=np.asarray(
+                c.origin_f).tolist(), weights=None if c.weights is None
+                else c.weights.tolist(), tag_coverage=c.tag_coverage))
+        n0, r0 = read_counts(counters), read_scalars.count
+        s0, fine = plain_advance(*a, **kw)
+        n1, r1 = read_counts(counters), read_scalars.count
+        launches.append({k: n1[k] - n0[k] for k in n1})
+        reads.append(r1 - r0)
+        c = h.couplings[0]
+        levels.setdefault(tuple(c.ext_nx), c)
+        parts = [s0] + c.unstack(fine[0])
+        rows.append(torch.stack([
+            patch_avgdown_err(torch, h, s0, fine[0], a[2][0],
+                              kw["weights"][0]),
+            s0.scalars[0].abs().max(), h.last_sync_info[1],
+            torch.stack([p.scalars[0].min() for p in parts]).min(),
+            torch.stack([p.scalars[0].max() for p in parts]).max(),
+            torch.stack([torch.isfinite(getattr(p, f)).all().to(
+                s0.vel.dtype) for p in parts for f in STATE_FIELDS]).min()]))
+        return s0, fine
+
+    h.advance = advance
+    marks = []
+    drv.scheduler.schedule(lambda *_: marks.append(read_scalars.count),
+                           step_interval=1)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    state, steps = drv.run(verbose=False)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = read_counts(counters)
+    return dict(drv=drv, h=h, state=state, fine=drv.fine_state[0],
+                steps=steps, seconds=seconds, launches=total,
+                per_step={k: statistics.mean(l[k] for l in launches)
+                          for k in total},
+                reads_advance=statistics.mean(reads),
+                reads_step=((marks[-1] - marks[0]) / (len(marks) - 1)
+                            if len(marks) > 1 else float("nan")),
+                rows=torch.stack(rows).tolist(), levels=levels,
+                placed=placed[0],
+                peak=(torch.cuda.max_memory_allocated() if device != "cpu"
+                      else 0),
+                ckpt=io_seconds("write_checkpoint"),
+                plot=io_seconds("write_plotfile"))
+
+
+def regrid_log(run):
+    """The placement and every regrid: (step, K, origins, weights)."""
+    p = run["placed"]
+    return [(0, p["K"], p["origins"], p["weights"])] + [
+        (r["step"], r["K"], r["origins"], r["weights"])
+        for r in run["drv"].regrids]
+
+
+def amr_pair_diffs(a, b):
+    """{level.field: max|a - b| / max|b|} over the base and the refined
+    level of two runs, the potentials gauge-free (per patch)."""
+    rel = {}
+    for lvl, x, y in (("base", a["state"], b["state"]),
+                      ("patches", a["fine"], b["fine"])):
+        for f in AMR_FIELDS:
+            u, v = getattr(x, f), getattr(y, f).to(getattr(x, f).device)
+            if f in GAUGE_FIELDS:
+                k = u.shape[0] if lvl == "patches" and \
+                    a["h"].couplings[0].K > 1 else None
+                rel[f"{lvl}.{f}"] = max(gauge_free_diff(u[i], v[i])
+                                        for i in range(k)) if k else \
+                    gauge_free_diff(u, v)
+            else:
+                rel[f"{lvl}.{f}"] = float((u - v).abs().max()) / max(
+                    float(v.abs().max()), 1e-30)
+    return rel
+
+
+def amr_gates(run, label):
+    """The per-coarse-step gates of an AMR deck run, and zero dropped tags
+    at the placement and after every regrid."""
+    rows = run["rows"]
+    if not all(r[5] == 1.0 for r in rows):
+        raise PhaseError(f"{label}: non-finite fields")
+    if not all(B_BOUNDS[0] < r[3] and r[4] < B_BOUNDS[1] for r in rows):
+        raise PhaseError(f"{label}: buoyancy left {B_BOUNDS}")
+    if not all(r[0] <= AVGDOWN_RTOL * r[1] for r in rows):
+        raise PhaseError(f"{label}: the base cells under a patch are not "
+                         "its average")
+    if not all(r[2] < SYNC_RELRES for r in rows):
+        raise PhaseError(f"{label}: the sync solve did not reduce its "
+                         "composite residual")
+    drops = [run["placed"]["tag_coverage"]] + [
+        r["tag_coverage"] for r in run["drv"].regrids]
+    if any(d[0] != 0 for d in drops):
+        raise PhaseError(f"{label}: tagged cells dropped {drops}")
+
+
+def amr_deck_card_vs_cpu(torch, device, counters, files):
+    """R0: each small deck through RunDriver on the CPU and on the card:
+    the same K, origins and weights at the placement and after every
+    regrid, the same dynamic-subcycling factors, every field of both
+    levels within R0_RTOL; then on the card the run resumed from its
+    mid-run checkpoint, equal to the uninterrupted one (DRIVER_RTOL).
+    Returns the card's launches of both decks."""
+    total = {}
+    for label, deck, fronts in (("AMR_CFG", R0_DECK, False),
+                                ("subcycled", R0_SUBCYCLED, False),
+                                ("two fronts", R0_TWO_FRONTS, True)):
+        runs = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_r0_") as out:
+            cwd = os.getcwd()
+            os.chdir(out)
+            try:
+                for dev in ("cpu", device):
+                    runs[dev] = amr_deck_run(torch, deck, dev, counters,
+                                             fronts)
+                card = runs[device]
+                resumed = amr_deck_run(
+                    torch, deck + "amr.restart_file = chkpt_000003.hdf5\n",
+                    device, counters, fronts)
+            finally:
+                os.chdir(cwd)
+        if files is not None:
+            files.trees.clear()
+        for k, v in card["launches"].items():
+            total[k] = total.get(k, 0) + v
+        rel = amr_pair_diffs(card, runs["cpu"])
+        err = max(rel.values())
+        res = max(max(field_diffs(resumed[x], card[x], AMR_FIELDS).values())
+                  for x in ("state", "fine"))
+        log, cpu_log = regrid_log(card), regrid_log(runs["cpu"])
+        c = card["h"].couplings[0]
+        say(f"R0 {label} {card['h'].grid0.nx} ratio {c.ratio}, "
+            f"{card['steps']} coarse steps on {device} and on the CPU: "
+            f"(step, K, origins, weights) at placement and every regrid "
+            f"{log} (CPU {'the same' if log == cpu_log else cpu_log}); "
+            f"dts {['%.6g' % d for d in card['drv'].dts]}; nt_mults "
+            f"{card['drv'].nt_mults} (CPU {'the same' if card['drv'].nt_mults == runs['cpu']['drv'].nt_mults else runs['cpu']['drv'].nt_mults}); "
+            "card against CPU max|diff|/max|field| "
+            + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+            + f" (limit {R0_RTOL}); resumed from chkpt_000003 against the "
+            f"uninterrupted run {res:.3e} (limit {DRIVER_RTOL}, K "
+            f"{resumed['h'].couplings[0].K}); sync relres per step "
+            + ",".join(f"{r[2]:.3e}" for r in card["rows"])
+            + f"; launches {json.dumps(card['launches'])}")
+        amr_gates(card, f"R0 {label}")
+        if log != cpu_log or card["drv"].nt_mults != runs["cpu"][
+                "drv"].nt_mults:
+            raise PhaseError(f"R0 {label}: the card placed or regridded "
+                             "the patches otherwise than the CPU")
+        if not err <= R0_RTOL:
+            raise PhaseError(f"R0 {label}: the card's run differs from the "
+                             "CPU's")
+        if not (res <= DRIVER_RTOL and resumed["steps"] == card["steps"]
+                and regrid_log(resumed)[-1][1:] == log[-1][1:]):
+            raise PhaseError(f"R0 {label}: the resumed run differs")
+        if fronts and not (c.K == 2 and all(w == 1.0 for w in c.weights)):
+            raise PhaseError(f"R0 {label}: K = {c.K} weights {c.weights}, "
+                             "not two active patches")
+        if deck is R0_SUBCYCLED and card["drv"].nt_mults[0] != (2,):
+            raise PhaseError(f"R0 {label}: the first step's subcycling "
+                             f"factors {card['drv'].nt_mults[0]}, not (2,)")
+        check_launched(card["launches"], AMR_PATH_2D, f"R0 {label}")
+    return total
+
+
+def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
+                   want_k=None):
+    """R1 / R2: a full-width AMR deck through RunDriver on the card with
+    the counts set to 0 just before; prints ms per coarse step (plain and
+    regrid steps apart), seconds per regrid, K, origins and tag coverage
+    at placement and after each regrid, launches and host reads per
+    coarse step, file seconds and peak memory; applies amr_gates.
+    Returns the run."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r_") as out:
+        cwd = os.getcwd()
+        os.chdir(out)
+        try:
+            run = amr_deck_run(torch, deck, device, counters, fronts)
+        finally:
+            os.chdir(cwd)
+    drv, h = run["drv"], run["h"]
+    c = h.couplings[0]
+    regrid_steps = {r["step"] for r in drv.regrids}
+    plain = [t for i, t in enumerate(drv.step_seconds, 1)
+             if i not in regrid_steps]
+    regrid = [t for i, t in enumerate(drv.step_seconds, 1)
+              if i in regrid_steps]
+    rows = run["rows"]
+    say(f"{label} base {h.grid0.nx} ratio {c.ratio}, nt {c.nt}: "
+        f"{run['steps']} coarse steps in {run['seconds']:.2f} s (set-up and "
+        f"files included); {STANDINS}; ms per coarse step: plain steps "
+        f"median {ms_of(plain):.3f} samples "
+        + ",".join(f"{1e3 * t:.3f}" for t in plain)
+        + (f"; regrid steps median {ms_of(regrid):.3f} samples "
+           + ",".join(f"{1e3 * t:.3f}" for t in regrid) if regrid else "")
+        + "; seconds per regrid "
+        + ",".join(f"{r['seconds']:.3f}" for r in drv.regrids)
+        + f"; placement K {run['placed']['K']} origins "
+        f"{run['placed']['origins']} weights {run['placed']['weights']} "
+        f"tag coverage (dropped, tagged) {run['placed']['tag_coverage']}; "
+        "after each regrid (step, K, origins, weights, ext, coverage) "
+        + "; ".join(f"({r['step']}, {r['K']}, {r['origins']}, "
+                    f"{r['weights']}, {r['ext']}, {r['tag_coverage']})"
+                    for r in drv.regrids)
+        + f"; dts {['%.5g' % d for d in drv.dts]}; nt_mults "
+        f"{sorted(set(drv.nt_mults))}; launches per coarse step "
+        f"{json.dumps(run['per_step'])}; launches in the run "
+        f"{json.dumps(run['launches'])}; host reads per coarse step "
+        f"{run['reads_advance']:.2f} in the advance, {run['reads_step']:.2f} "
+        f"between step ends; cell-updates/s "
+        f"{drv.cell_updates / drv.elapsed:.4e} (files included); checkpoint"
+        f" write {run['ckpt'][0]} s x{run['ckpt'][1]}, plot file write "
+        f"{run['plot'][0]} s x{run['plot'][1]}; peak_mem_bytes "
+        f"{run['peak']}; sync relres per step "
+        + ",".join(f"{r[2]:.3e}" for r in rows)
+        + f" (limit {SYNC_RELRES}); average-down max|diff|/max|b| per step "
+        + ",".join(f"{r[0] / max(r[1], 1e-30):.2e}" for r in rows)
+        + f"; b in [{min(r[3] for r in rows):.4f}, "
+        f"{max(r[4] for r in rows):.4f}] on {smi}")
+    amr_gates(run, label)
+    if want_k is not None and not all(
+            r[1] == want_k and (r[3] is None or all(w == 1.0 for w in r[3]))
+            for r in regrid_log(run)):
+        raise PhaseError(f"{label}: not {want_k} active patches at every "
+                         f"regrid: {regrid_log(run)}")
+    check_launched(run["launches"], ("ctu_corr3",) + AMR_PATH_2D, label)
+    return run
+
+
+def amr_deck_phases(torch, ck, gk, sgk, counters, device, smi, worst,
+                    files):
+    """R0, R1, R2 and the command line on an AMR deck, each printing its
+    seconds; after R1 and R2, K1-K8 against their twins at every level
+    shape the run reached.  Returns {phase: launches, per_step}."""
+    out = {}
+    t0 = time.perf_counter()
+    out["r0"] = (amr_deck_card_vs_cpu(torch, device, counters, files), {})
+    say(f"phase R0: {time.perf_counter() - t0:.1f} s")
+    for key, deck, fronts, want_k in (("r1", R1_DECK, False, None),
+                                      ("r2", R2_DECK, True, 2)):
+        t0 = time.perf_counter()
+        run = amr_deck_phase(torch, device, counters, smi, key.upper(), deck,
+                             fronts, want_k)
+        if files is not None:
+            files.trees.clear()
+        levels = {"base": run["h"].level0}
+        levels.update({f"patch {ext}": c.level
+                       for ext, c in run["levels"].items()})
+        plain = levels_kernel_twins(torch, ck, gk, sgk, levels, worst)
+        say(f"{key.upper()} kernels against their twins at the padded "
+            f"shapes of {list(levels)}; solver levels without a kernel "
+            f"plan (plain path): {json.dumps(plain)}")
+        out[key] = (run["launches"], run["per_step"])
+        del run
+        say(f"phase {key.upper()}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_phase(device, files, deck=R0_DECK, label="AMR deck")
+    say(f"phase R-CLI: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2714,6 +3169,8 @@ def main() -> int:
     l1_lep, l1_mg, l1_f64, flat_times = phases["l1"]
     amr = amr_phases(torch, entry, ck, gk, sgk, counters, device, smi,
                      errs)
+    amr_r = amr_deck_phases(torch, ck, gk, sgk, counters, device, smi, errs,
+                            files)
 
     k6_levels = {}
     for shape, (ms, plain, dev) in k6_times.items():
@@ -2785,7 +3242,12 @@ def main() -> int:
             launches_a1=amr["a1"][0][name],
             launches_per_a1_coarse_step=amr["a1"][1]["per_step"][name],
             launches_a2=amr["a2"][0][name],
-            launches_per_a2_coarse_step=amr["a2"][1]["per_step"][name])
+            launches_per_a2_coarse_step=amr["a2"][1]["per_step"][name],
+            launches_r0=amr_r["r0"][0][name],
+            launches_r1=amr_r["r1"][0][name],
+            launches_per_r1_coarse_step=amr_r["r1"][1][name],
+            launches_r2=amr_r["r2"][0][name],
+            launches_per_r2_coarse_step=amr_r["r2"][1][name])
         if name in flat_times:
             entry_["flattened_leptic_level"] = flat_times[name]
         if name == "ppm_predict":

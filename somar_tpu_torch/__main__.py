@@ -4,8 +4,9 @@
     python -m somar_tpu_torch [--device cpu] <input_file> [key=value ...]
 
 Reads an input file in the reference's format, applies the key=value
-overrides, and runs it through RunDriver at amr.maxlevel = 0, writing
-plot and checkpoint files into the current directory.  The run is on the
+overrides, and runs it through RunDriver (one level, or with
+amr.maxlevel = 1 a two-level AMR hierarchy), writing plot and checkpoint
+files into the current directory.  The run is on the
 GPU unless --device says otherwise.
 """
 

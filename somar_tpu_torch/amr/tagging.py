@@ -1,12 +1,14 @@
 """Refinement tagging: where to refine (PyTorch port of
-`somar_tpu.amr.tagging`, single-patch placement).
+`somar_tpu.amr.tagging`).
 
 Undivided-difference tags on buoyancy, velocity and pressure, |vorticity|
 quota and absolute thresholds, gradient-Richardson-number tags, tag growing
 and vertical extrusion.  Tagging is host work at placement: the fields it
 needs are read to the host once per call (`solvers/host_reads.read_arrays`)
 and the tags are a numpy boolean array, as in the JAX package.  The
-multi-patch `patch_origins_from_tags` waits for slice 10 (ROADMAP A.5).
+origins of one patch (`patch_origin_from_tags`) or of K same-shape patches
+(`patch_origins_from_tags`, Berger-Rigoutsos clusters merged until they
+fit K separated patches) are host integers.
 """
 
 from __future__ import annotations
@@ -123,6 +125,112 @@ def compute_tags(state, level, params: TagParams) -> np.ndarray:
     return tags
 
 
+def _extended_origin(lo, hi, grid: Grid, ratio, interior_shape_f,
+                     halo_axes, lo_pad_f) -> np.ndarray:
+    """The per-array-axis origin (fine cells) of the EXTENDED patch
+    centred on the box [lo, hi] (parent cells, hi inclusive), snapped to
+    coarse cells and clamped so that the patch, its halo and one coarse
+    cell of donor margin stay in the domain (`lo_pad_f`: an extra no-go
+    margin at both ends)."""
+    origin = np.zeros(grid.ndim, dtype=np.int64)
+    for ax in range(grid.ndim):
+        r = ratio[grid.dir_of_axis(ax)]
+        n_f = grid.nx[grid.dir_of_axis(ax)] * r
+        interior_f = interior_shape_f[ax]
+        h = halo_axes[ax]
+        center_c = 0.5 * (lo[ax] + hi[ax] + 1)
+        start_f = int(round(center_c * r - interior_f / 2))
+        start_f = (start_f // r) * r
+        margin = h + r + lo_pad_f[ax] if h > 0 else 0
+        start_f = max(margin, min(start_f, n_f - interior_f - margin))
+        origin[ax] = start_f - h
+    return origin
+
+
+def patch_origins_from_tags(tags: np.ndarray, grid: Grid, ratio,
+                            interior_shape_f, halo_axes, num_patches: int,
+                            lo_pad_f=None, fill_ratio: float = 0.8,
+                            block_factor: int = 8):
+    """Up to `num_patches` separated patch origins covering the tag
+    clusters: (origins (K, ndim) int64, weights (K,) float32), weight 0
+    marking an inactive slot that duplicates slot 0; None when nothing is
+    tagged.  Berger-Rigoutsos boxes are merged, largest first, until at
+    most K remain and their extended patches (plus one parent cell of
+    donor margin) are disjoint along a CF axis, so that every patch's CF
+    halo sees only parent data."""
+    from somar_tpu_torch.native import berger_rigoutsos
+
+    if not tags.any():
+        return None
+    if lo_pad_f is None:
+        lo_pad_f = (0,) * grid.ndim
+    K = int(num_patches)
+    boxes = np.asarray(berger_rigoutsos(
+        tags, fill_ratio=fill_ratio,
+        min_side=max(1, int(block_factor) // 2)))   # (n, 2, ndim), hi incl.
+    if boxes.ndim != 3 or len(boxes) == 0:
+        boxes = np.stack([np.stack([np.zeros(grid.ndim, np.int64),
+                                    np.asarray(tags.shape) - 1])])
+    cf_axes = [ax for ax in range(grid.ndim) if halo_axes[ax] > 0]
+    groups = [b.astype(np.int64) for b in boxes]
+
+    def origin_of(bbox):
+        return _extended_origin(bbox[0], bbox[1], grid, ratio,
+                                interior_shape_f, halo_axes, lo_pad_f)
+
+    def merged(a, b):
+        return np.stack([np.minimum(a[0], b[0]), np.maximum(a[1], b[1])])
+
+    def patches_overlap(oa, ob):
+        for ax in cf_axes:
+            r = ratio[grid.dir_of_axis(ax)]
+            ext_f = interior_shape_f[ax] + 2 * halo_axes[ax]
+            if oa[ax] + ext_f + r <= ob[ax] - r \
+                    or ob[ax] + ext_f + r <= oa[ax] - r:
+                return False
+        return len(cf_axes) > 0
+
+    while True:
+        groups.sort(key=lambda b: -int(np.prod(b[1] - b[0] + 1)))
+        while len(groups) > K:
+            # merge the pair with the smallest gap along the CF axes
+            best = (None, np.inf)
+            for i in range(len(groups)):
+                for j in range(i + 1, len(groups)):
+                    gap = 0
+                    for ax in cf_axes:
+                        gap += max(0, max(groups[i][0][ax]
+                                          - groups[j][1][ax] - 1,
+                                          groups[j][0][ax]
+                                          - groups[i][1][ax] - 1))
+                    if gap < best[1]:
+                        best = ((i, j), gap)
+            (i, j), _ = best
+            groups[i] = merged(groups[i], groups[j])
+            del groups[j]
+        origins = [origin_of(b) for b in groups]
+        collided = False
+        for i in range(len(origins)):
+            for j in range(i + 1, len(origins)):
+                if patches_overlap(origins[i], origins[j]):
+                    groups[i] = merged(groups[i], groups[j])
+                    del groups[j]
+                    collided = True
+                    break
+            if collided:
+                break
+        if not collided:
+            break
+
+    n = len(origins)
+    out = np.zeros((K, grid.ndim), dtype=np.int64)
+    w = np.zeros(K, dtype=np.float32)
+    for k in range(K):
+        out[k] = origins[k if k < n else 0]
+        w[k] = 1.0 if k < n else 0.0
+    return out, w
+
+
 def tag_coverage(tags: np.ndarray, origins, weights, grid: Grid, ratio,
                  interior_shape_f, halo_axes):
     """(n_dropped, n_tagged): tagged parent cells not covered by any active
@@ -158,17 +266,5 @@ def patch_origin_from_tags(tags: np.ndarray, grid: Grid, ratio,
         return None
     if lo_pad_f is None:
         lo_pad_f = (0,) * grid.ndim
-    lo, hi = bbox[0], bbox[1]
-    origin = np.zeros(grid.ndim, dtype=np.int64)
-    for ax in range(grid.ndim):
-        r = ratio[grid.dir_of_axis(ax)]
-        n_f = grid.nx[grid.dir_of_axis(ax)] * r
-        interior_f = interior_shape_f[ax]
-        h = halo_axes[ax]
-        center_c = 0.5 * (lo[ax] + hi[ax] + 1)
-        start_f = int(round(center_c * r - interior_f / 2))
-        start_f = (start_f // r) * r
-        margin = h + r + lo_pad_f[ax] if h > 0 else 0
-        start_f = max(margin, min(start_f, n_f - interior_f - margin))
-        origin[ax] = start_f - h
-    return origin
+    return _extended_origin(bbox[0], bbox[1], grid, ratio, interior_shape_f,
+                            halo_axes, lo_pad_f)

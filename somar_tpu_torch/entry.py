@@ -9,7 +9,7 @@ geometries between the two packages.
     level, grid = build_beam_level(640, 512, device="cuda")
     level, grid = build_vortex_level(1024, 512, ramp_time=1.0, device="cuda")
     h = build_amr_hierarchy(64, 96, 64, ratio=(4, 1, 1), device="cuda")
-    s0, fine, origin = place_amr(h)
+    s0, fine, origin = place_amr(h)        # (.., weights) when K > 1
     s0, fine = run_amr(h, s0, fine, origin, dt=0.01, nsteps=10)
 """
 
@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from somar_tpu_torch.amr.hierarchy import SLICE10, AMRHierarchy
+from somar_tpu_torch.amr.hierarchy import SLICE11, AMRHierarchy
 from somar_tpu_torch.amr.tagging import TagParams
 from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.bathymetric import BeamGeneratorMap
@@ -163,28 +163,28 @@ def build_amr_hierarchy(nx: int, ny: int | None, nz: int,
 
 def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
     """The two-level hierarchy of a deck: the amr.* keys that the JAX
-    driver reads (somar_tpu/driver.py:40-85) for amr.maxlevel = 1.  Keys
-    that select what slice 10 of the port's AMR adds (amr.maxlevel > 1,
-    amr.max_patches != 1, refluxing, post-regrid smoothing, the VD
-    correction) raise NotImplementedError; amr.regrid_intervals is not
-    read (the placement stays fixed)."""
+    driver reads (somar_tpu/driver.py:40-85) for amr.maxlevel = 1,
+    amr.max_patches (1, the default, lets right-sizing double K; any
+    other value pins it) included.  The regrid cadence
+    amr.regrid_intervals (default 10) is set on the hierarchy as
+    `regrid_intervals`, one per refined level.  Keys that select what
+    the port does not have yet (amr.maxlevel > 1, refluxing, post-regrid
+    smoothing, the VD correction) raise NotImplementedError naming slice
+    11."""
     a = ctx.amr
     if a.max_level != 1:
         raise (NotImplementedError(f"amr.maxlevel = {a.max_level} is "
-                                   f"{SLICE10}") if a.max_level > 1 else
+                                   f"{SLICE11}") if a.max_level > 1 else
                ValueError("amr.maxlevel = 0 has no refined level: use "
                           "RunDriver"))
-    if a.max_patches != 1:
-        raise NotImplementedError(f"amr.max_patches = {a.max_patches} is "
-                                  f"{SLICE10}")
     if a.advective_momentum_reflux or a.advective_scalar_reflux \
             or a.advective_lambda_reflux or a.implicit_scalar_reflux \
             or a.implicit_momentum_reflux:
-        raise NotImplementedError(f"refluxing is {SLICE10}")
+        raise NotImplementedError(f"refluxing is {SLICE11}")
     if a.regrid_smoothing_coeff > 0.0:
-        raise NotImplementedError(f"post-regrid smoothing is {SLICE10}")
+        raise NotImplementedError(f"post-regrid smoothing is {SLICE11}")
     if a.apply_vd_correction and a.eta_lambda > 0.0:
-        raise NotImplementedError(f"the VD correction is {SLICE10}")
+        raise NotImplementedError(f"the VD correction is {SLICE11}")
     grid = ctx.base_grid()
     geo = build_level_geometry(grid, ctx.new_geo_source(), device=device,
                                dtype=ctx.ns.dtype)
@@ -195,7 +195,7 @@ def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
         do_ri_tagging=a.do_ri_tagging, ri_tag_tol=a.ri_tag_tol,
         tags_grow=a.tags_grow, fill_ratio=a.fill_ratio,
         block_factor=a.block_factor, vert_extrude=a.vert_extrude_tags)
-    return AMRHierarchy(
+    h = AMRHierarchy(
         geo, ctx.new_problem(), ctx.ns, ratios=list(a.ref_ratios[:1]),
         tag_params=tags, num_patches=a.max_patches,
         use_subcycling=a.use_subcycling, max_grid_size=a.max_grid_size,
@@ -203,31 +203,39 @@ def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
                             and a.apply_sync_correction),
         sync_projection_iters=a.sync_projection_iters,
         sync_composite_iters=a.sync_composite_iters)
+    ivs = list(a.regrid_intervals) or [10]
+    h.regrid_intervals = [int(ivs[min(lev, len(ivs) - 1)])
+                          for lev in range(len(h.couplings))]
+    return h
 
 
 def place_amr(h: AMRHierarchy, s0: Optional[NSState] = None,
               init_projection: bool = True):
     """The bench's set-up of a hierarchy: the base level's initial state
-    post-initialized (unless s0 is given), the patch placed once from its
-    tags and filled, then one composite initial projection.  Returns (s0,
-    patch state, origin)."""
+    post-initialized (unless s0 is given), the patches placed once from
+    its tags and filled, then one composite initial projection.  Returns
+    (s0, refined level's state, origins), and the weights as a fourth
+    item when the level has K > 1 patches."""
     if s0 is None:
         s0 = h.level0.post_initialize(h.level0.initial_state())
-    (fine,), (origin,) = h.initial_patch_states(s0)
+    got = h.initial_patch_states(s0)
+    (fine,), (origin,) = got[:2]
+    weights = got[2][0] if len(got) > 2 else None
     if init_projection:
-        s0, (fine,) = h.init_project(s0, fine, origin)
-    return s0, fine, origin
+        s0, (fine,) = h.init_project(s0, fine, origin, weights=weights)
+    return (s0, fine, origin) if weights is None else \
+        (s0, fine, origin, weights)
 
 
 def run_amr(h: AMRHierarchy, s0: NSState, fine: NSState, origin, dt: float,
             nsteps: int,
-            on_step: Optional[Callable[[int, NSState, NSState], None]] = None
-            ):
-    """`nsteps` coarse steps of length dt at the fixed patch origin (the
-    JAX package's AMR bench path).  on_step(i, s0, fine) is called after
-    step i.  Returns (s0, fine)."""
+            on_step: Optional[Callable[[int, NSState, NSState], None]] = None,
+            weights=None):
+    """`nsteps` coarse steps of length dt at fixed patch origins (the JAX
+    package's AMR bench path).  on_step(i, s0, fine) is called after step
+    i.  Returns (s0, fine)."""
     for i in range(nsteps):
-        s0, fine = h.advance(s0, fine, origin, dt)
+        s0, fine = h.advance(s0, fine, origin, dt, weights=weights)
         if on_step is not None:
             on_step(i, s0, fine)
     return s0, fine
@@ -275,14 +283,20 @@ def ns_state_from_numpy(fields: Dict[str, np.ndarray], device="cuda",
 
 def amr_states_from_numpy(base: Dict[str, np.ndarray],
                           fine: Dict[str, np.ndarray], origin,
-                          device="cuda", dtype=torch.float32):
-    """(base state, patch state, origin) of a two-level hierarchy on
-    `device` from host arrays (e.g. a JAX hierarchy's states read out with
-    np.asarray per field, and its patch origin): the origin becomes a host
-    int64 array per array axis."""
-    return (ns_state_from_numpy(base, device=device, dtype=dtype),
-            ns_state_from_numpy(fine, device=device, dtype=dtype),
-            np.asarray(origin, dtype=np.int64).copy())
+                          device="cuda", dtype=torch.float32, weights=None):
+    """(base state, refined level's state, origins) of a two-level
+    hierarchy on `device` from host arrays (e.g. a JAX hierarchy's states
+    read out with np.asarray per field, and its patch origins): the fine
+    fields carry a leading K axis when the level has K > 1 patches, and
+    the origins become host int64 arrays per array axis ((K, ndim) at
+    K > 1).  With weights given, they follow as a fourth item, a host
+    float32 (K,) array."""
+    out = (ns_state_from_numpy(base, device=device, dtype=dtype),
+           ns_state_from_numpy(fine, device=device, dtype=dtype),
+           np.asarray(origin, dtype=np.int64).copy())
+    if weights is None:
+        return out
+    return out + (np.asarray(weights, dtype=np.float32).copy(),)
 
 
 def ns_state_to_numpy(state: NSState) -> Dict[str, np.ndarray]:

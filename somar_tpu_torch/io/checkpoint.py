@@ -21,10 +21,15 @@ pressure and macPressure, plus a Chombo-layout view of the same state in
 the same file (`<name>:datatype=0` LevelData datasets).  Plot files are
 Chombo-format (VisIt-readable): `write_chombo_plotfile`.
 
-Single level only: the AMR arguments of the JAX functions (fine states,
-hierarchies, patch origins, weights, parent selections) raise
-NotImplementedError: AMR checkpoints and plot files are slice 10 of the
-port (ROADMAP A.5).
+AMR: with a hierarchy's refined level (fine_state, its grid, origins and,
+at K > 1, weights and parent selections), the file holds group
+`level_1` as well, with the patch_origin / patch_weights / parent_sel
+attributes and the datasets of level_0, a leading patch axis on each
+when the level has K > 1 patches (attribute num_patches), and the
+Chombo views carry the fine level's boxes, one per active patch
+interior in the fine level's global index space.  A resume restores the
+patches, origins and weights exactly.  Nested levels (more than one
+refined level) are slice 11 of the port's AMR (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -43,12 +48,17 @@ def _host(t) -> np.ndarray:
     return np.asarray(t)
 
 
-def _no_amr(**kw):
-    given = sorted(k for k, v in kw.items() if v is not None)
-    if given:
+def _levels(values):
+    """A coarse-to-fine sequence of a per-level argument (a bare value is
+    the one refined level's); more than one refined level raises."""
+    if values is None:
+        return None
+    out = list(values) if isinstance(values, (list, tuple)) else [values]
+    if len(out) > 1:
         raise NotImplementedError(
-            f"{', '.join(given)}: AMR checkpoints and plot files are slice "
-            "10 of the port (ROADMAP A.5)")
+            f"{len(out)} refined levels: nested-level checkpoints are slice "
+            "11 of the port's AMR (ROADMAP A.5)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -90,22 +100,33 @@ def read_tree(path: str) -> dict:
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------
-def _level_group(state, grid, old_state=None) -> dict:
+def _level_group(state, grid, old_state=None, origin=None, weights=None,
+                 parent_sel=None) -> dict:
     g = {"attrs": {"nx": np.asarray(grid.nx), "dx": np.asarray(grid.dx),
                    "x0": np.asarray(grid.x0),
                    "periodic": np.asarray(grid.periodic, dtype=np.int8)}}
+    if origin is not None:
+        g["attrs"]["patch_origin"] = np.asarray(origin)
+    if weights is not None:
+        g["attrs"]["patch_weights"] = np.asarray(weights)
+    if parent_sel is not None:
+        g["attrs"]["parent_sel"] = np.asarray(parent_sel)
     vel, scal = _host(state.vel), _host(state.scalars)
+    multi = vel.ndim == grid.ndim + 2       # a leading patch axis
+    if multi:
+        g["attrs"]["num_patches"] = vel.shape[0]
+    comp = (lambda a, i: a[:, i]) if multi else (lambda a, i: a[i])
     for m in range(grid.ndim):
-        g[f"new_velocity_{m}"] = vel[m]
-    for c in range(scal.shape[0]):
-        g[f"new_scalar_{c}"] = scal[c]
+        g[f"new_velocity_{m}"] = comp(vel, m)
+    for c in range(scal.shape[1 if multi else 0]):
+        g[f"new_scalar_{c}"] = comp(scal, c)
     g["new_lambda"] = _host(state.lam)
     if old_state is not None:
         ovel, oscal = _host(old_state.vel), _host(old_state.scalars)
         for m in range(grid.ndim):
-            g[f"old_velocity_{m}"] = ovel[m]
-        for c in range(oscal.shape[0]):
-            g[f"old_scalar_{c}"] = oscal[c]
+            g[f"old_velocity_{m}"] = comp(ovel, m)
+        for c in range(oscal.shape[1 if multi else 0]):
+            g[f"old_scalar_{c}"] = comp(oscal, c)
         g["old_lambda"] = _host(old_state.lam)
     g["eLambda"] = _host(state.e_lambda)
     g["ccPressure"] = _host(state.cc_phi)
@@ -116,15 +137,32 @@ def _level_group(state, grid, old_state=None) -> dict:
 
 def checkpoint_tree(state, level, step: int, dt: float,
                     extra: Optional[dict] = None, old_state=None,
-                    cfl: float = 0.0) -> dict:
-    """The content of a checkpoint of one level's state, for exact
-    resume."""
+                    cfl: float = 0.0, fine_state=None, fine_grid=None,
+                    origin=None, weights=None, parent_sels=None,
+                    old_fine=None, hierarchy=None) -> dict:
+    """The content of a checkpoint of one level's state, or of a
+    hierarchy's with fine_state (the refined level's state), fine_grid
+    (its extended patch grid), origin, weights and parent_sels, each
+    bare or as a one-element sequence, for exact resume."""
     grid = level.grid
+    fines = _levels(fine_state) or []
+    nf = len(fines)
+    grids = _levels(fine_grid) or [None] * nf
+    origins = _levels(origin) or [None] * nf
+    wts = _levels(weights) or [None] * nf
+    psels = _levels(parent_sels) or [None] * nf
+    olds = _levels(old_fine) or [None] * nf
     tree = {"attrs": {"iteration": step, "time": float(state.time),
-                      "dt": float(dt), "num_levels": 1, "ndim": grid.ndim,
+                      "dt": float(dt), "num_levels": 1 + nf,
+                      "ndim": grid.ndim,
                       "config_json": json.dumps(extra or {})},
             "level_0": _level_group(state, grid, old_state)}
-    _chombo_checkpoint_view(tree, state, level, step, dt, cfl, old_state)
+    for k in range(nf):
+        tree[f"level_{k + 1}"] = _level_group(
+            fines[k], grids[k], olds[k], origins[k], wts[k], psels[k])
+    _chombo_checkpoint_view(tree, state, level, step, dt, cfl, old_state,
+                            fines if hierarchy is not None else [],
+                            hierarchy, olds)
     return tree
 
 
@@ -133,22 +171,21 @@ def write_checkpoint(path: str, state, level, step: int, dt: float,
                      fine_state=None, fine_grid=None, origin=None,
                      weights=None, parent_sels=None, old_state=None,
                      old_fine=None, hierarchy=None, cfl: float = 0.0):
-    """Save one level's state for exact resume (the JAX signature; its AMR
-    arguments raise)."""
-    _no_amr(fine_state=fine_state, fine_grid=fine_grid, origin=origin,
-            weights=weights, parent_sels=parent_sels, old_fine=old_fine,
-            hierarchy=hierarchy)
-    write_tree(path, checkpoint_tree(state, level, step, dt, extra,
-                                     old_state, cfl))
+    """Save one level's state, or a two-level hierarchy's, for exact
+    resume (the JAX signature)."""
+    write_tree(path, checkpoint_tree(
+        state, level, step, dt, extra, old_state, cfl, fine_state,
+        fine_grid, origin, weights, parent_sels, old_fine, hierarchy))
 
 
-def _chombo_checkpoint_view(tree, state, level, step, dt, cfl, old_state):
+def _chombo_checkpoint_view(tree, state, level, step, dt, cfl, old_state,
+                            fine_states=(), hierarchy=None, old_fine=()):
     """The Chombo-layout view of the checkpoint, written into the same
     file beside the native datasets (component names at the root, level
     header attributes, boxes and the new/old velocity, lambda, scalar,
-    ccPressure and eLambda LevelDatas), so tooling that reads Chombo
-    files reads checkpoints as it reads plot files.  Resume reads the
-    native view."""
+    ccPressure and eLambda LevelDatas; a refined level one box per active
+    patch interior), so tooling that reads Chombo files reads checkpoints
+    as it reads plot files.  Resume reads the native view."""
     grid = level.grid
     ndim = grid.ndim
     nscal = int(state.scalars.shape[0])
@@ -166,45 +203,109 @@ def _chombo_checkpoint_view(tree, state, level, step, dt, cfl, old_state):
     tree["Chombo_global"] = {"attrs": {"SpaceDim": np.int32(ndim),
                                        "testReal": np.float64(0.0)}}
 
-    g = tree["level_0"]
+    fs = list(fine_states)
+    nlev = 1 + len(fs)
     domain_nx = np.asarray(grid.nx, np.int64)
-    ga = g["attrs"]
-    ga["step_number"] = np.int32(step)
-    ga["ref_ratio"] = _as_iv([1] * ndim, ndim)
-    ga["vec_dx"] = _as_rv(grid.dx, ndim)
-    ga["dt"] = np.float64(float(dt))
-    ga["time"] = np.float64(float(state.time))
-    ga["cfl"] = np.float64(cfl)
-    ga["finest_level"] = np.int32(0)
-    ga["is_empty"] = np.int32(0)
-    ga["prob_domain"] = _as_box(np.zeros(ndim, np.int64), domain_nx - 1,
-                                ndim)
-    for d in range(ndim):
-        ga[f"is_periodic_{d}"] = np.int32(1 if grid.periodic[d] else 0)
-    box = np.empty(1, _box_dtype(ndim))
-    box[0] = _as_box(np.zeros(ndim, np.int64), domain_nx - 1, ndim)
-    g["boxes"] = box
-    g["Processors"] = np.zeros(1, "<i4")
+    lev_dt = float(dt)
+    for ilev in range(nlev):
+        g = tree[f"level_{ilev}"]
+        if ilev == 0:
+            st, old = state, old_state
+            boxes = [(np.zeros(ndim, np.int64), domain_nx - 1,
+                      (slice(None),) * ndim)]
+            patch_ids = [None]
+            dx = grid.dx
+            rr = (list(hierarchy.couplings[0].ratio[:ndim])
+                  if hierarchy is not None and hierarchy.couplings
+                  else [1] * ndim)
+            t = float(state.time)
+        else:
+            c = hierarchy.couplings[ilev - 1]
+            st, old = fs[ilev - 1], old_fine[ilev - 1]
+            domain_nx = domain_nx * np.asarray(c.ratio[:ndim], np.int64)
+            boxes, patch_ids = _fine_level_boxes(hierarchy, ilev - 1, c,
+                                                 domain_nx)
+            if c.K == 1:
+                patch_ids = [None]
+            dx = c.ext_grid.dx
+            rr = [1] * ndim
+            lev_dt /= c.nt
+            t = float(_host(st.time).ravel()[0])
+        ga = g["attrs"]
+        ga["step_number"] = np.int32(step)
+        ga["ref_ratio"] = _as_iv(rr, ndim)
+        ga["vec_dx"] = _as_rv(dx, ndim)
+        ga["dt"] = np.float64(lev_dt)
+        ga["time"] = np.float64(t)
+        ga["cfl"] = np.float64(cfl)
+        ga["finest_level"] = np.int32(nlev - 1)
+        ga["is_empty"] = np.int32(0)
+        ga["prob_domain"] = _as_box(np.zeros(ndim, np.int64), domain_nx - 1,
+                                    ndim)
+        for d in range(ndim):
+            ga[f"is_periodic_{d}"] = np.int32(1 if grid.periodic[d] else 0)
+        recs = np.empty(len(boxes), _box_dtype(ndim))
+        for b, (lo, hi, _) in enumerate(boxes):
+            recs[b] = _as_box(lo, hi, ndim)
+        g["boxes"] = recs
+        g["Processors"] = np.zeros(len(boxes), "<i4")
 
-    old = old_state if old_state is not None else state
-    vel, ovel = _host(state.vel), _host(old.vel)
-    _chombo_leveldata(g, "new_velocity", list(vel), ndim)
-    _chombo_leveldata(g, "old_velocity", list(ovel), ndim)
-    _chombo_leveldata(g, "new_lambda", [_host(state.lam)], ndim)
-    _chombo_leveldata(g, "old_lambda", [_host(old.lam)], ndim)
-    scal, oscal = _host(state.scalars), _host(old.scalars)
-    for c in range(nscal):
-        _chombo_leveldata(g, f"new_scalar_component_{c}", [scal[c]], ndim)
-        _chombo_leveldata(g, f"old_scalar_component_{c}", [oscal[c]], ndim)
-    _chombo_leveldata(g, "ccPressure", [_host(state.cc_phi)], ndim)
-    _chombo_leveldata(g, "eLambda", [_host(state.e_lambda)], ndim)
+        old = old if old is not None else st
+
+        def boxed(field, ncomp):
+            """Per box, the component arrays of a (maybe patch-stacked)
+            field, cut to the box."""
+            a_ = _host(field)
+            out = []
+            for (_, _, sl), k in zip(boxes, patch_ids):
+                ak = a_ if k is None else a_[k]
+                comps = [ak[m] for m in range(ncomp)] if ncomp > 1 else [ak]
+                out.append([x[sl] for x in comps])
+            return out
+
+        _chombo_leveldata(g, "new_velocity", boxed(st.vel, ndim), ndim)
+        _chombo_leveldata(g, "old_velocity", boxed(old.vel, ndim), ndim)
+        _chombo_leveldata(g, "new_lambda", boxed(st.lam, 1), ndim)
+        _chombo_leveldata(g, "old_lambda", boxed(old.lam, 1), ndim)
+        multi = st.scalars.ndim == ndim + 2
+        for c_ in range(nscal):
+            sel = (lambda f: f[:, c_]) if multi else (lambda f: f[c_])
+            _chombo_leveldata(g, f"new_scalar_component_{c_}",
+                              boxed(sel(st.scalars), 1), ndim)
+            _chombo_leveldata(g, f"old_scalar_component_{c_}",
+                              boxed(sel(old.scalars), 1), ndim)
+        _chombo_leveldata(g, "ccPressure", boxed(st.cc_phi, 1), ndim)
+        _chombo_leveldata(g, "eLambda", boxed(st.e_lambda, 1), ndim)
 
 
-def state_from_tree(tree: dict, level):
-    """(state, step, dt) from a checkpoint tree, on the level's device in
-    its dtype."""
+def _state_from_group(g, grid, time: float, nscal: int, kw) -> "NSState":
     from somar_tpu_torch.physics.navier_stokes import NSState
 
+    multi = "num_patches" in g["attrs"]
+    ax = 1 if multi else 0
+
+    def t(name):
+        return torch.as_tensor(g[name], **kw)
+
+    e_lam = (t("eLambda") if "eLambda" in g
+             else torch.zeros(grid.shape, **kw))
+    return NSState(
+        vel=torch.stack([t(f"new_velocity_{m}") for m in range(grid.ndim)],
+                        dim=ax),
+        scalars=torch.stack([t(f"new_scalar_{c}") for c in range(nscal)],
+                            dim=ax),
+        lam=t("new_lambda"), mac_phi=t("macPressure"),
+        cc_phi=t("ccPressure"), pressure=t("pressure"), e_lambda=e_lam,
+        time=(torch.full((int(g["attrs"]["num_patches"]),), time, **kw)
+              if multi else torch.tensor(time, **kw)))
+
+
+def state_from_tree(tree: dict, level, fine_grid=None):
+    """(state, step, dt) from a checkpoint tree, on the level's device in
+    its dtype.  With fine_grid (the refined level's extended grid) and a
+    level_1 group in the tree: (state, step, dt, fine_state, origin) for
+    a bare fine_grid, (state, step, dt, (fine_state,), (origin,),
+    (weights,), (parent_sel,)) for a one-element sequence."""
     grid = level.grid
     kw = dict(dtype=level.params.dtype, device=level.device)
     a = tree["attrs"]
@@ -212,26 +313,35 @@ def state_from_tree(tree: dict, level):
     if tuple(int(n) for n in g["attrs"]["nx"]) != grid.nx:
         raise ValueError(f"checkpoint grid {tuple(g['attrs']['nx'])} != "
                          f"run grid {grid.nx}")
-
-    def t(name):
-        return torch.as_tensor(g[name], **kw)
-
+    time = float(a["time"])
     nscal = level.problem.num_scalars
-    state = NSState(
-        vel=torch.stack([t(f"new_velocity_{m}") for m in range(grid.ndim)]),
-        scalars=torch.stack([t(f"new_scalar_{c}") for c in range(nscal)]),
-        lam=t("new_lambda"), mac_phi=t("macPressure"),
-        cc_phi=t("ccPressure"), pressure=t("pressure"),
-        e_lambda=(t("eLambda") if "eLambda" in g
-                  else torch.zeros(grid.shape, **kw)),
-        time=torch.tensor(float(a["time"]), **kw))
-    return state, int(a["iteration"]), float(a["dt"])
+    state = _state_from_group(g, grid, time, nscal, kw)
+    step, dt = int(a["iteration"]), float(a["dt"])
+    if fine_grid is None or "level_1" not in tree:
+        return state, step, dt
+    single = not isinstance(fine_grid, (list, tuple))
+    grids = _levels(fine_grid)
+    fines, origins, weights, psels = [], [], [], []
+    for k, gk in enumerate(grids):
+        g1 = tree[f"level_{k + 1}"]
+        at = g1["attrs"]
+        fines.append(_state_from_group(g1, gk, time, nscal, kw))
+        origins.append(np.asarray(at["patch_origin"]))
+        weights.append(np.asarray(at["patch_weights"])
+                       if "patch_weights" in at else None)
+        psels.append(np.asarray(at["parent_sel"])
+                     if "parent_sel" in at else None)
+    if single:
+        return state, step, dt, fines[0], origins[0]
+    return (state, step, dt, tuple(fines), tuple(origins), tuple(weights),
+            tuple(psels))
 
 
 def read_checkpoint(path: str, level, fine_grid=None):
-    """Restore (state, step, dt) from a checkpoint of one level."""
-    _no_amr(fine_grid=fine_grid)
-    return state_from_tree(read_tree(path), level)
+    """Restore (state, step, dt) from a checkpoint, and the refined
+    level's patches, origins, weights and parent selections when
+    fine_grid is given (state_from_tree)."""
+    return state_from_tree(read_tree(path), level, fine_grid)
 
 
 # ---------------------------------------------------------------------------
@@ -374,62 +484,129 @@ def _fab_flat(arrays):
          for a in arrays])
 
 
-def _chombo_leveldata(g, name, comp_arrays, ndim):
-    """One Chombo LevelData<FArrayBox> of a single box in group g:
-    `<name>:datatype=0` flat doubles, `<name>:offsets=0` box offsets,
-    `<name>_attributes` metadata."""
-    flat = _fab_flat(comp_arrays)
-    g[f"{name}:datatype=0"] = flat
-    g[f"{name}:offsets=0"] = np.asarray([0, flat.size], "<i8")
+def _chombo_leveldata(g, name, per_box_comp_arrays, ndim):
+    """One Chombo LevelData<FArrayBox> in group g: `<name>:datatype=0`
+    flat doubles of every box in turn, `<name>:offsets=0` the boxes'
+    offsets, `<name>_attributes` metadata.  per_box_comp_arrays: per box,
+    its per-component arrays."""
+    flats = [_fab_flat(arrays) for arrays in per_box_comp_arrays]
+    offsets = np.cumsum([0] + [f.size for f in flats])
+    g[f"{name}:datatype=0"] = (np.concatenate(flats) if flats
+                               else np.zeros(0, np.float64))
+    g[f"{name}:offsets=0"] = np.asarray(offsets, "<i8")
     g[f"{name}_attributes"] = {"attrs": {
-        "comps": np.int32(len(comp_arrays)),
+        "comps": np.int32(len(per_box_comp_arrays[0])
+                          if per_box_comp_arrays else 0),
         "ghost": _as_iv([0] * ndim, ndim),
         "outputGhost": _as_iv([0] * ndim, ndim),
         "objectType": np.bytes_("FArrayBox")}}
 
 
+def _fine_level_boxes(hierarchy, lev, c, domain_nx):
+    """The active patch interiors of refined level `lev` as boxes in that
+    level's 0-based global index space: ([(lo per logical dir, hi per
+    logical dir, interior slices into the extended array)], [patch
+    index])."""
+    ndim = c.ext_grid.ndim
+    los, patch_ids = [], []
+    if c.K > 1:
+        for k in range(c.K):
+            if c.weights is not None and float(c.weights[k]) == 0.0:
+                continue
+            los.append(hierarchy._global_origin(
+                lev, last_origin=c.origin_f[k], patch=k))
+            patch_ids.append(k)
+    else:
+        los.append(hierarchy._global_origin(lev))
+        patch_ids.append(0)
+    int_start = tuple(c.halo if c.ext_grid.dir_of_axis(ax) in c.cf_dirs
+                      else 0 for ax in range(ndim))
+    boxes = []
+    for g in los:
+        lo_d = np.zeros(ndim, np.int64)
+        hi_d = np.zeros(ndim, np.int64)
+        sl = []
+        for ax in range(ndim):
+            d = c.ext_grid.dir_of_axis(ax)
+            lo_d[d] = g[ax] + int_start[ax]
+            hi_d[d] = lo_d[d] + c.interior_nx[d] - 1
+            sl.append(slice(int_start[ax], int_start[ax] + c.interior_nx[d]))
+        boxes.append((lo_d, hi_d, tuple(sl)))
+    return boxes, patch_ids
+
+
+def _data_attributes(ncomp, ndim):
+    return {"attrs": {"comps": np.int32(ncomp),
+                      "ghost": _as_iv([0] * ndim, ndim),
+                      "outputGhost": _as_iv([0] * ndim, ndim),
+                      "objectType": np.bytes_("FArrayBox")}}
+
+
 def chombo_plotfile_tree(state, level, step: int, plot_cfg=None,
-                         dt: float = 0.0) -> dict:
-    """The content of a Chombo-format plot file of one level: root header
-    with the component names, level_0 with ref_ratio, vec_dx, dx, dt,
-    time, prob_domain, boxes and `data:datatype=0`."""
+                         dt: float = 0.0, hierarchy=None,
+                         fine_states=None) -> dict:
+    """The content of a Chombo-format plot file: root header with the
+    component names, then per level ref_ratio, vec_dx, dx, dt, time,
+    prob_domain, boxes and `data:datatype=0`.  With a hierarchy and its
+    refined level's state (bare or a one-element sequence), level_1 holds
+    one box per active patch interior, at the level's dt (dt / nt)."""
     grid = level.grid
     ndim = grid.ndim
-    fields = _plot_fields(state, level, plot_cfg)
-    names = list(fields)
+    fields0 = _plot_fields(state, level, plot_cfg)
+    names = list(fields0)
     nx = np.asarray(grid.nx, np.int64)
-    root = {"max_level": np.int32(0), "num_levels": np.int32(1),
+    # per level: (per-box field dicts, boxes, dx, domain, ref_ratio, dt)
+    levels = [([fields0], [(np.zeros(ndim, np.int64), nx - 1,
+                            (slice(None),) * ndim)],
+               grid.dx, nx, [1] * ndim, float(dt))]
+    fs = _levels(fine_states) if hierarchy is not None else None
+    if fs:
+        from somar_tpu_torch.amr.hierarchy import tree_index
+        c = hierarchy.couplings[0]
+        dom = nx * np.asarray(c.ratio[:ndim], np.int64)
+        boxes, ids = _fine_level_boxes(hierarchy, 0, c, dom)
+        per_box = [_plot_fields(fs[0] if c.K == 1 else
+                                tree_index(fs[0], k), c.level, plot_cfg)
+                   for k in ids]
+        levels[0] = levels[0][:4] + (list(c.ratio[:ndim]), float(dt))
+        levels.append((per_box, boxes, c.ext_grid.dx, dom, [1] * ndim,
+                       float(dt) / c.nt))
+    root = {"max_level": np.int32(len(levels) - 1),
+            "num_levels": np.int32(len(levels)),
             "iteration": np.int32(step),
             "time": np.float64(float(state.time)),
             "num_components": np.int32(len(names))}
     for i, name in enumerate(names):
         root[f"component_{i}"] = np.bytes_(name)
-    box = np.empty(1, _box_dtype(ndim))
-    box[0] = _as_box(np.zeros(ndim, np.int64), nx - 1, ndim)
-    level0 = {
-        "attrs": {"ref_ratio": _as_iv([1] * ndim, ndim),
-                  "vec_dx": _as_rv(grid.dx, ndim),
-                  # scalar dx for stock Chombo readers (first dir)
-                  "dx": np.float64(grid.dx[0]), "dt": np.float64(dt),
-                  "time": np.float64(float(state.time)),
-                  "prob_domain": _as_box(np.zeros(ndim, np.int64), nx - 1,
-                                         ndim)},
-        "boxes": box,
-        "data:datatype=0": _fab_flat([fields[n] for n in names]),
-        "data_attributes": {"attrs": {
-            "comps": np.int32(len(names)),
-            "ghost": _as_iv([0] * ndim, ndim),
-            "outputGhost": _as_iv([0] * ndim, ndim),
-            "objectType": np.bytes_("FArrayBox")}}}
-    return {"attrs": root,
+    tree = {"attrs": root,
             "Chombo_global": {"attrs": {"SpaceDim": np.int32(ndim),
-                                        "testReal": np.float64(0.0)}},
-            "level_0": level0}
+                                        "testReal": np.float64(0.0)}}}
+    for ilev, (per_box, boxes, dx, dom, rr, lev_dt) in enumerate(levels):
+        recs = np.empty(len(boxes), _box_dtype(ndim))
+        flat = []
+        for b, (lo, hi, sl) in enumerate(boxes):
+            recs[b] = _as_box(lo, hi, ndim)
+            fb = per_box[b]
+            flat.append(_fab_flat([fb[n][sl] for n in names]))
+        tree[f"level_{ilev}"] = {
+            "attrs": {"ref_ratio": _as_iv(rr, ndim),
+                      "vec_dx": _as_rv(dx, ndim),
+                      # scalar dx for stock Chombo readers (first dir)
+                      "dx": np.float64(dx[0]), "dt": np.float64(lev_dt),
+                      "time": np.float64(float(state.time)),
+                      "prob_domain": _as_box(np.zeros(ndim, np.int64),
+                                             dom - 1, ndim)},
+            "boxes": recs,
+            "data:datatype=0": (np.concatenate(flat) if flat
+                                else np.zeros(0)),
+            "data_attributes": _data_attributes(len(names), ndim)}
+    return tree
 
 
 def write_chombo_plotfile(path: str, state, level, step: int, plot_cfg=None,
                           hierarchy=None, fine_states=None, dt: float = 0.0):
-    """Write a Chombo-format plot file of one level (the JAX signature;
-    its AMR arguments raise)."""
-    _no_amr(hierarchy=hierarchy, fine_states=fine_states)
-    write_tree(path, chombo_plotfile_tree(state, level, step, plot_cfg, dt))
+    """Write a Chombo-format plot file (the JAX signature): one level, or
+    with hierarchy and fine_states the refined level's patch interiors
+    too."""
+    write_tree(path, chombo_plotfile_tree(state, level, step, plot_cfg, dt,
+                                          hierarchy, fine_states))

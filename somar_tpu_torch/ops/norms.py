@@ -3,7 +3,8 @@ two-level hierarchy (PyTorch port of the parts of `somar_tpu.ops.norms`
 that the AMR path uses).
 
 The physical-volume integral of a CC field is sum_c f_c J_c dV_xi; a
-hierarchy sum takes each level's cells that no finer patch covers.  Sums
+hierarchy sum takes each level's cells that no finer patch covers (a level
+of K > 1 patches each active patch's, times its weight).  Sums
 accumulate in float32, or in float64 for float64 fields (the JAX package
 under x64).  As there, the field is rounded to float32, and |f|^p taken
 in float32, before it is weighted.
@@ -93,24 +94,38 @@ def _composite(h, fields, origins, kind: str, p: int = 2):
     total = mx = None
     for lev, level in enumerate(levels):
         geo, grid = level.geo, level.geo.grid
-        field = fields[lev]
-        device = field.device
-        mask = (_halo_free_mask(h.couplings[lev - 1], grid, device)
-                if lev > 0 else torch.ones(grid.shape, dtype=torch.bool,
-                                           device=device))
-        if lev < len(h.couplings):
-            cf = h.couplings[lev]
-            mask = mask & _uncovered_mask(
-                grid, cf.covered_origin_c(origins[lev]), cf.covered_shape_c,
-                device)
-        if kind == "sum":
-            v = mapped_sum(field, geo, mask=mask)
-            total = v if total is None else total + v
-        elif p == 0:
-            v = mapped_norm(field, geo, 0, mask=mask)
-            mx = v if mx is None else torch.maximum(mx, v)
+        if lev == 0:
+            parts = [(fields[0], None)]
         else:
-            v = mapped_norm(field, geo, p, mask=mask) ** p
+            # a level of K > 1 patches passes its (K,)+shape stack; a
+            # weight-0 slot contributes nothing, the others times weight
+            c = h.couplings[lev - 1]
+            parts = ([(fields[lev][k], w) for k, w in
+                      enumerate(c.patch_weights(c.weights))]
+                     if c.K > 1 else [(fields[lev], None)])
+        for field, w in parts:
+            if w == 0.0:
+                continue
+            device = field.device
+            mask = (_halo_free_mask(h.couplings[lev - 1], grid, device)
+                    if lev > 0 else torch.ones(grid.shape, dtype=torch.bool,
+                                               device=device))
+            if lev < len(h.couplings):
+                cf = h.couplings[lev]
+                for o in cf.patch_origins(origins[lev]):
+                    mask = mask & _uncovered_mask(
+                        grid, cf.covered_origin_c(o), cf.covered_shape_c,
+                        device)
+            if kind == "sum":
+                v = mapped_sum(field, geo, mask=mask)
+            elif p == 0:
+                v = mapped_norm(field, geo, 0, mask=mask)
+                mx = v if mx is None else torch.maximum(mx, v)
+                continue
+            else:
+                v = mapped_norm(field, geo, p, mask=mask) ** p
+            if w is not None:
+                v = w * v
             total = v if total is None else total + v
     if kind == "sum":
         return total

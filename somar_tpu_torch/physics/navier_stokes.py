@@ -730,10 +730,18 @@ class NSLevel:
     def compute_dt(self, state: NSState) -> float:
         """CFL + viscous + diffusive + pressure-gradient + internal-wave dt
         limits, as a Python float (one device-to-host read)."""
+        if self.params.fixed_dt > 0.0:
+            return float(torch.tensor(self.params.fixed_dt,
+                                      dtype=self.params.dtype))
+        return read_scalars(self.compute_dt_tensor(state))[0]
+
+    def compute_dt_tensor(self, state: NSState):
+        """compute_dt as a 0-d tensor on the level's device, unread."""
         p = self.params
         grid = self.grid
         if p.fixed_dt > 0.0:
-            return float(torch.tensor(p.fixed_dt, dtype=p.dtype))
+            return torch.tensor(p.fixed_dt, dtype=p.dtype,
+                                device=state.vel.device)
         u_mapped = self.geo.to_mapped(state.vel)
         # per-direction max|u^d|/dx_d, reduced on the device in dtype
         rates = torch.stack([u_mapped[d].abs().max() / grid.dx[d]
@@ -758,7 +766,7 @@ class NSLevel:
             bv = torch.stack([(u_mapped[d].abs() + self._c0i[d]).max()
                               / grid.dx[d] for d in range(grid.ndim)])
             dt = torch.minimum(dt, p.cfl / torch.clamp_min(bv.max(), 1e-12))
-        return read_scalars(torch.clamp_max(dt, p.max_dt).to(p.dtype))[0]
+        return torch.clamp_max(dt, p.max_dt).to(p.dtype)
 
     # --------------------------------------------------------- diagnostics
     def total_energy(self, state: NSState):

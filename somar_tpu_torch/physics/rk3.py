@@ -16,7 +16,7 @@ and no K4: the fluxes go through `flux_divergence`.
 
 Selected by NSParams.update_scheme = "rk3" (input amr.updateScheme = 2).
 The AMR arguments (`collect`, `rings`) keep the JAX signature and raise:
-RK3 on AMR patch levels is slice 10 of the port (ROADMAP A.5).
+RK3 on AMR patch levels is slice 11 of the port (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def advance_rk3(level, state, dt: float, collect=None, rings=None,
     if collect is not None or rings is not None:
         raise NotImplementedError(
             "RK3 flux collection and coarse-fine rings (RK3 on AMR patch "
-            "levels) are slice 10 of the port (ROADMAP A.5)")
+            "levels) are slice 11 of the port's AMR (ROADMAP A.5)")
     p = level.params
     dt = float(dt)
     grad_p = (level.projector.cc_grad_cart(state.pressure)

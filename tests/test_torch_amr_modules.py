@@ -25,8 +25,13 @@ eagerly, in float64 (jax_enable_x64) unless named:
   * the hierarchy's compute_dt and level_dts on one state: 1e-13;
   * entry.amr_hierarchy_from_context against the JAX RunDriver's
     hierarchy from the same deck (footprint, nt, tag parameters, sync
-    knobs, the placed origin), and the deck keys of slice 10 raising;
-  * the slice-10 features raise NotImplementedError naming slice 10;
+    knobs, the regrid cadence, the placed origin; amr.max_patches = 2
+    pinning K), and the deck keys of slice 11 raising;
+  * placement right-sizing as in JAX: the footprint widened with
+    max_auto_patches = 1, K doubled without it;
+  * the features that slice 10 ported (K pinned by num_patches, regrid,
+    dynamic subcycling, weights) run, and the rest raise
+    NotImplementedError naming slice 11;
   * chip_smoke.py's limit on the sync solve's final relres: the sound
     solve stays below it after each of 3 coarse steps on A0's 3D and 2D
     hierarchies, and each fault of SYNC_FAULTS (one composite pass, no
@@ -350,15 +355,30 @@ def test_amr_hierarchy_from_context_matches_jax_driver(tmp_path):
     (_,), (jo,) = jh.initial_patch_states(js)
     (_,), (to,) = th.initial_patch_states(ts)
     np.testing.assert_array_equal(to, np.asarray(jo))
+    jdrv = JDriver(JContext.from_parmparse(JPP.from_string(AMR_DECK)),
+                   out_dir=str(tmp_path))
+    assert th.regrid_intervals == jdrv.regrid_intervals == [10]
+    # amr.max_patches = 2 pins K = 2, as the JAX driver's hierarchy
+    deck2 = AMR_DECK + "amr.max_patches = 2\namr.regrid_intervals = 3\n"
+    jh2 = JDriver(JContext.from_parmparse(JPP.from_string(deck2)),
+                  out_dir=str(tmp_path)).hierarchy
+    th2 = entry.amr_hierarchy_from_context(
+        TContext.from_parmparse(TPP.from_string(deck2)), device="cpu")
+    assert th2.couplings[0].K == jh2.couplings[0].K == 2
+    assert [th2._pinned_K] == jh2._pinned_K == [True]
+    assert th2.regrid_intervals == [3]
+    _, (jo2,), (jw2,) = jh2.initial_patch_states(js)
+    _, (to2,), (tw2,) = th2.initial_patch_states(ts)
+    np.testing.assert_array_equal(to2, np.asarray(jo2))
+    np.testing.assert_array_equal(tw2, np.asarray(jw2))
     for extra in ("amr.maxlevel = 2\namr.refratio_lev1 = 2 1\n",
-                  "amr.max_patches = 2\n",
                   "amr.advective_scalar_reflux = 1\n",
                   "amr.smooth_after_regrid = 1\n"
                   "amr.postRegrid_smoothing_coeff = 1.0\n",
                   "projection.applyVDCorrection = 1\n"
                   "projection.etaLambda = 0.9\n"):
         ctx = TContext.from_parmparse(TPP.from_string(AMR_DECK + extra))
-        with pytest.raises(NotImplementedError, match="slice 10"):
+        with pytest.raises(NotImplementedError, match="slice 11"):
             entry.amr_hierarchy_from_context(ctx, device="cpu")
 
 
@@ -524,34 +544,37 @@ def test_collect_fluxes_matches_jax():
 
 def test_placement_widens_the_footprint_as_jax():
     """Tags outgrowing a narrow footprint: with max_auto_patches = 1 the
-    footprint widens (patch_frac x 1.5) until they fit, as in JAX; where
-    JAX would double the patch budget K instead, the port raises."""
+    footprint widens (patch_frac x 1.5) until they fit, and with the
+    default budget K doubles first, both as in JAX."""
     g = JGrid(nx=(32, 8), dx=(15 / 32, 2 / 8), x0=(-7.5, 0.0))
     tags = JTags(buoyancy_tag_tol=0.05, tags_grow=3)
-    kw = dict(ratio=(4, 1), patch_frac=0.1, max_auto_patches=1)
-    jh = JHierarchy(jgeo(g, JCartesian(), dtype=jnp.float64),
-                    JLock(pert_amp=0.0), JParams(dtype=jnp.float64),
-                    tag_params=tags, **kw)
     tl, _ = entry.build_level(32, 8, device="cpu", dtype=F64)
     from somar_tpu_torch.amr.hierarchy import AMRHierarchy
-    th = AMRHierarchy(tl.geo, tl.problem, tl.params,
-                      tag_params=TTags(buoyancy_tag_tol=0.05, tags_grow=3),
-                      **kw)
-    js = jh.level0.initial_state()
-    ts = entry.ns_state_from_numpy(
-        {f: np.asarray(getattr(js, f)) for f in entry.STATE_FIELDS},
-        device="cpu", dtype=F64)
-    (_,), (jo,) = jh.initial_patch_states(js)
-    (_,), (to,) = th.initial_patch_states(ts)
-    tc, jc = th.couplings[0], jh.couplings[0]
-    assert tc.interior_nx == jc.interior_nx != (16, 8)
-    assert tc.tag_coverage == jc.tag_coverage
-    np.testing.assert_array_equal(to, np.asarray(jo))
-    th = AMRHierarchy(tl.geo, tl.problem, tl.params,
-                      tag_params=TTags(buoyancy_tag_tol=0.05, tags_grow=3),
-                      ratio=(4, 1), patch_frac=0.1)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        th.initial_patch_states(ts)
+    for kw in (dict(ratio=(4, 1), patch_frac=0.1, max_auto_patches=1),
+               dict(ratio=(4, 1), patch_frac=0.1)):
+        jh = JHierarchy(jgeo(g, JCartesian(), dtype=jnp.float64),
+                        JLock(pert_amp=0.0), JParams(dtype=jnp.float64),
+                        tag_params=tags, **kw)
+        th = AMRHierarchy(tl.geo, tl.problem, tl.params,
+                          tag_params=TTags(buoyancy_tag_tol=0.05,
+                                           tags_grow=3), **kw)
+        js = jh.level0.initial_state()
+        ts = entry.ns_state_from_numpy(
+            {f: np.asarray(getattr(js, f)) for f in entry.STATE_FIELDS},
+            device="cpu", dtype=F64)
+        jgot = jh.initial_patch_states(js)
+        tgot = th.initial_patch_states(ts)
+        tc, jc = th.couplings[0], jh.couplings[0]
+        assert len(tgot) == len(jgot)
+        assert (tc.K, tc.interior_nx) == (jc.K, jc.interior_nx)
+        assert tc.tag_coverage == jc.tag_coverage
+        np.testing.assert_array_equal(tgot[1][0], np.asarray(jgot[1][0]))
+        if "max_auto_patches" in kw:
+            assert tc.K == 1 and tc.interior_nx != (16, 8)
+        else:
+            assert tc.K > 1
+            np.testing.assert_array_equal(tgot[2][0],
+                                          np.asarray(jgot[2][0]))
 
 
 def test_initialize_pressure_keeps_only_the_pressures(pair):
@@ -585,29 +608,38 @@ def test_aux_fields_stand_in_for_the_derived_ones():
 
 # ------------------------------------------------------------- slice 10
 def test_slice10_features_raise(pair):
+    """What slice 10 ported runs (K pinned by num_patches, regrid,
+    dynamic subcycling, weights at K = 1); nested levels, refluxing, the
+    VD correction, post-regrid smoothing and sharded steps raise naming
+    slice 11."""
     jh, th = pair
     level = th.level0
     kw = dict(ratio=(4, 1))
     from somar_tpu_torch.amr.hierarchy import AMRHierarchy
-    for bad in (dict(ratios=[(4, 1), (2, 1)]), dict(num_patches=2, **kw),
-                dict(num_patches=(1, 1), **kw), dict(reflux=("vel",), **kw),
+    for k, pinned in ((2, True), ((1, 1), True), (1, False)):
+        h = AMRHierarchy(level.geo, level.problem, level.params,
+                         num_patches=k, **kw)
+        assert h.couplings[0].K == (k if isinstance(k, int) else k[0])
+        assert h._pinned_K == pinned
+    for bad in (dict(ratios=[(4, 1), (2, 1)]), dict(reflux=("vel",), **kw),
                 dict(implicit_reflux=True, **kw),
                 dict(eta_lambda=0.9, **kw),
                 dict(regrid_smoothing_coeff=1.0, **kw)):
-        with pytest.raises(NotImplementedError, match="slice 10"):
+        with pytest.raises(NotImplementedError, match="slice 11"):
             AMRHierarchy(level.geo, level.problem, level.params, **bad)
-    s0 = level.initial_state()
-    fine = th.couplings[0].level.initial_state()
-    origin = np.array([0, 28])
-    for call in (lambda: th.regrid(s0, fine),
-                 lambda: th.attach_mesh(None),
-                 lambda: th.advance(s0, fine, origin, 0.01,
-                                    nt_mults=(2,)),
+    s0, fine, origin = entry.place_amr(th)
+    fine2, origin2 = th.regrid(s0, fine)
+    assert fine2.vel.shape == fine.vel.shape and origin2.shape == (2,)
+    a0, af = th.advance(s0, fine, origin, 0.01, nt_mults=(2,))
+    b0, bf = th.advance(s0, fine, origin, 0.01, weights=[np.ones(1)])
+    for x in (af, bf):
+        np.testing.assert_allclose(float(x.time), float(fine.time) + 0.01)
+    for call in (lambda: th.attach_mesh(None),
                  lambda: th.advance(s0, (fine, fine), (origin, origin),
                                     0.01),
                  lambda: th.advance(s0, fine, origin, 0.01,
-                                    weights=[np.ones(1)])):
-        with pytest.raises(NotImplementedError, match="slice 10"):
+                                    geos=[{"geo": None}])):
+        with pytest.raises(NotImplementedError, match="slice 11"):
             call()
 
 

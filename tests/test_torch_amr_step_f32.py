@@ -5,8 +5,11 @@ placement equal."""
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_amr_step import CASES, STAGES, check_stage, run_pair
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,8 @@ from somar_tpu_torch.ops import gsrb_kernels as gk
 from somar_tpu_torch.solvers.leptic import LepticParams, LevelLepticSolver
 from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
 
+torch.set_num_threads(1)
+
 FIELDS = ("vel", "scalars", "lam", "pressure")
 OPTIONS = [dict(), dict(normal_pred_order=1), dict(normal_pred_order=0),
            dict(use_high_order_limiter=True),

@@ -37,6 +37,8 @@ from somar_tpu_torch.geometry.bathymetric import (
     BeamGeneratorMap as TBeamMap, LedgeMap as TLedge)
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 LOCK_2D = """

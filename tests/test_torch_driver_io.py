@@ -44,7 +44,7 @@ from somar_tpu_torch.config.context import ProblemContext as TContext
 from somar_tpu_torch.config.parmparse import ParmParse as TPP
 from somar_tpu_torch.driver import RunDriver as TDriver
 from somar_tpu_torch.io import checkpoint as tck
-from tests.test_driver_io import CFG
+from tests.test_driver_io import AMR_CFG, CFG
 from tests.test_torch_rk3 import DECKS
 
 torch.set_num_threads(1)
@@ -279,16 +279,36 @@ def test_restart_equals_uninterrupted_run(tmp_path):
 
 
 def test_amr_is_refused():
-    ctx = TContext.from_parmparse(TPP.from_string(CFG + "amr.maxlevel = 1\n"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        TDriver(ctx, device="cpu")
-    _, tl, _ = _levels(CFG)
-    state = tl.initial_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        tck.write_checkpoint("unused.hdf5", state, tl, 0, 0.1,
-                             fine_state=state)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        tck.read_checkpoint("unused.hdf5", tl, fine_grid=tl.grid)
+    """RunDriver at amr.maxlevel = 1 builds a two-level hierarchy (on the
+    GPU unless told otherwise) and its checkpoints carry the refined level
+    (slice 10 ported them); nested levels (amr.maxlevel = 2) and
+    nested-level checkpoints raise naming slice 11."""
+    deck = AMR_CFG
+    ctx = TContext.from_parmparse(TPP.from_string(deck))
+    drv = TDriver(ctx, device="cpu")
+    assert drv.hierarchy is not None and drv.level is drv.hierarchy.level0
+    if not torch.cuda.is_available():
+        # the default device is the GPU: without one the driver raises
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TDriver(ctx)
+    ctx2 = TContext.from_parmparse(TPP.from_string(
+        deck + "amr.maxlevel = 2\namr.refratio_lev1 = 2 1\n"))
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        TDriver(ctx2, device="cpu")
+    h = drv.hierarchy
+    s0, fine, origin = entry.place_amr(h)
+    c = h.couplings[0]
+    tree = tck.checkpoint_tree(s0, h.level0, 0, 0.1, fine_state=[fine],
+                               fine_grid=[c.ext_grid], origin=[origin],
+                               hierarchy=h)
+    assert tree["attrs"]["num_levels"] == 2
+    np.testing.assert_array_equal(
+        tree["level_1"]["attrs"]["patch_origin"], origin)
+    got = tck.state_from_tree(tree, h.level0, fine_grid=c.ext_grid)
+    assert torch.equal(got[3].vel, fine.vel)
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        tck.checkpoint_tree(s0, h.level0, 0, 0.1, fine_state=[fine, fine],
+                            fine_grid=[c.ext_grid] * 2, origin=[origin] * 2)
 
 
 def test_cli_runs_a_2d_deck(tmp_path, monkeypatch):

@@ -7,9 +7,12 @@ to 1e-12.  Its own file, so that its JAX compile
 runs beside the f32 one."""
 
 import pytest
+import torch
 
 from tests.test_torch_mapped_step import (NSTEPS, check_diagnostics,
                                           check_dt, check_step, trajectories)
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

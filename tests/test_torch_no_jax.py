@@ -8,8 +8,10 @@ function (with an RK3 step), builds every ibc.problem from a deck and
 steps VortexStreet with a ramped inflow, HorizConv, PLM advection with
 central fluxes and the leptic pressure solver, traces a batch, filters a
 field, imports the AMR modules and the clustering library, places and
-steps a two-level hierarchy, and has imported neither jax nor the JAX
-package."""
+steps a two-level hierarchy, runs an AMR deck (amr.maxlevel = 1, a
+regrid) through RunDriver and the command line, and has imported neither
+jax nor the JAX package.  The script blocks both imports: any attempt
+fails it."""
 
 import os
 import subprocess
@@ -18,7 +20,17 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.abc, pkgutil, sys
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "somar_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -118,6 +130,28 @@ s0, fine = entry.run_amr(h, s0, fine, origin, 0.02, 1)
 assert bool(torch.isfinite(fine.vel).all()) and h.last_sync_info[0] == 2
 assert bool(torch.isfinite(composite_mapped_sum(
     h, [s0.scalars[0], fine.scalars[0]], [origin])))
+amr_deck = ("amr.nx = 32 8\namr.length = 15 2\namr.nx_offset = -16 0\n"
+            "ibc.problem = 1\namr.viscosity = 1e-4\n"
+            "amr.scal_diffusion_coeffs = 1e-4\namr.maxlevel = 1\n"
+            "amr.refratio_lev0 = 4 1\namr.regrid_intervals = 2\n"
+            "amr.buoyancy_tag_tol = 0.2\namr.tags_grow = 1\n"
+            "amr.max_dt = 0.05\nplot.plot_interval = 2\n"
+            "plot.checkpoint_interval = 2\namr.verbosity = 0\n")
+with tempfile.TemporaryDirectory() as tmp:
+    ctx = ProblemContext.from_parmparse(ParmParse.from_string(amr_deck))
+    drv = RunDriver(ctx, out_dir=tmp, device="cpu")
+    s6, steps = drv.run(max_steps=2, verbose=False)
+    assert steps == 2 and drv.hierarchy is not None and len(drv.regrids) == 1
+    assert bool(torch.isfinite(drv.fine_state[0].vel).all())
+    path = os.path.join(tmp, "amr_deck")
+    with open(path, "w") as f:
+        f.write(amr_deck)
+    os.chdir(tmp)
+    assert main(["somar_tpu_torch", "--device", "cpu", path,
+                 "amr.maxsteps=2"]) == 0
+    for name in ("plot_000002.2d.hdf5", "chkpt_000002.hdf5"):
+        assert os.path.exists(os.path.join(tmp, name)), name
+    os.chdir("/")
 assert somar_tpu_torch.native.tag_bounding_box(
     np.ones((2, 3), bool)) is not None
 bad = sorted(m for m in sys.modules
