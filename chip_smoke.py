@@ -172,10 +172,32 @@ non-zero:
      amr.max_grid_size 120), 6 coarse steps: two active 3D patches at
      placement and after the regrid, the same prints and gates and twins;
  26. the command line on R0_DECK in a subprocess: exit 0 and "finished 2
-     steps".
+     steps";
+ 27. N0: three-level decks (amr.maxlevel = 2) through RunDriver on the
+     card and on the CPU: N0_DECK (R0_DECK with a second refined level at
+     ratio (4,2), both levels regridded every 2 steps) and N0_TWO_CHAINS
+     (R0_TWO_FRONTS at ratios (2,1) twice, amr.max_patches = 2 2: two
+     level-1 patches, each the parent of a level-2 patch), 6 coarse steps
+     each: the same K, origins, weights and parent selections on every
+     level at placement and after every regrid, the same subcycling
+     factors, every field of every level within 1e-3 (the potentials
+     gauge-free), the step gates on every level, and on the card the run
+     resumed from its step-3 checkpoint equal to the uninterrupted one
+     (1e-6); both chains active at every regrid of N0_TWO_CHAINS, and every
+     kernel of the 2D AMR path launched;
+ 28. N1: R1's deck at three levels (N1_DECK: a second refined level at
+     ratio (4,1,2), 16 level-2 substeps per coarse step, regrids of both
+     levels every 5 steps, 10 coarse steps, files at step 10), the
+     level-2 footprint reckoned by patch_footprint first and the built one
+     printed: R1's prints and gates at both interfaces, and per level K,
+     ext, origins, parent selections and tag coverage at placement and
+     after each regrid;
+ 29. N2: K1-K4 at the padded shapes of the level-2 patches N1 reached and
+     K5-K8 on their solver hierarchies against their twins.
 The line before the last is a JSON object describing each kernel, with
-launches_r0 / launches_r1 / launches_r2 and the per-coarse-step counts of
-R1 and R2; the last line is {"ok": true, "device": {...}}.
+launches_r0 / launches_r1 / launches_r2 / launches_n0 / launches_n1 and
+the per-coarse-step counts of R1, R2 and N1; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -2772,24 +2794,31 @@ def with_fronts(torch, drv, centres=FRONTS):
     lvl.initial_state = fronts
 
 
-def patch_avgdown_err(torch, h, s0, fine, origin, weights):
-    """max over the active patches, over b and u, of |base under the
-    patch interior - restricted patch interior| (a 0-d tensor)."""
+def patch_avgdown_err(torch, h, s0, fines, origins, weights,
+                      parent_sels=None):
+    """max over every refined level's active patches, over b and u, of
+    |parent under the patch interior - restricted patch interior| (a 0-d
+    tensor); each patch against its own parent patch."""
     from somar_tpu_torch.amr.transfer import extract_patch, restrict_average
-    c = h.couplings[0]
-    ws = c.patch_weights(weights)
     errs = []
-    for p, o, w in zip(c.unstack(fine), c.patch_origins(origin), ws):
-        if w is not None and w == 0.0:
-            continue
-        org_c = c.covered_origin_c(o)
-        for coarse, f in ((s0.scalars[0], p.scalars[0]), *zip(s0.vel,
-                                                               p.vel)):
-            want = restrict_average(extract_patch(f, c.int_start,
-                                                  c.int_shape),
-                                    c.ext_grid, c.ratio)
-            errs.append((extract_patch(coarse, org_c, want.shape)
-                         - want).abs().max())
+    for lev, c in enumerate(h.couplings):
+        parents = ([s0] if lev == 0
+                   else h.couplings[lev - 1].unstack(fines[lev - 1]))
+        for p, o, w, q in zip(c.unstack(fines[lev]),
+                              c.patch_origins(origins[lev]),
+                              c.patch_weights(weights[lev]),
+                              h._psel(lev, parent_sels)):
+            if w is not None and w == 0.0:
+                continue
+            par = parents[q]
+            org_c = c.covered_origin_c(o)
+            for coarse, f in ((par.scalars[0], p.scalars[0]),
+                              *zip(par.vel, p.vel)):
+                want = restrict_average(extract_patch(f, c.int_start,
+                                                      c.int_shape),
+                                        c.ext_grid, c.ratio)
+                errs.append((extract_patch(coarse, org_c, want.shape)
+                             - want).abs().max())
     return torch.stack(errs).max()
 
 
@@ -2801,7 +2830,7 @@ def amr_deck_run(torch, deck, device, counters, fronts=False):
     levels and whether every field is finite, and on the host its
     launches and host reads.  Returns a dict."""
     import numpy as np
-    from somar_tpu_torch.driver import RunDriver
+    from somar_tpu_torch.driver import RunDriver, level_log
     from somar_tpu_torch.solvers.host_reads import read_scalars
     from somar_tpu_torch.utils.timers import timer
     timer.reset()
@@ -2816,26 +2845,28 @@ def amr_deck_run(torch, deck, device, counters, fronts=False):
         if "nt_mults" not in kw:                 # initialize_pressure
             return plain_advance(*a, **kw)
         if not placed:
-            c = h.couplings[0]
-            placed.append(dict(K=c.K, origins=np.asarray(
-                c.origin_f).tolist(), weights=None if c.weights is None
-                else c.weights.tolist(), tag_coverage=c.tag_coverage))
+            placed.append(level_log(h))
         n0, r0 = read_counts(counters), read_scalars.count
         s0, fine = plain_advance(*a, **kw)
         n1, r1 = read_counts(counters), read_scalars.count
         launches.append({k: n1[k] - n0[k] for k in n1})
         reads.append(r1 - r0)
-        c = h.couplings[0]
-        levels.setdefault(tuple(c.ext_nx), c)
-        parts = [s0] + c.unstack(fine[0])
+        for lev, c in enumerate(h.couplings):
+            levels.setdefault((lev + 1, tuple(c.ext_nx)), c)
+        by_level = [[s0]] + [c.unstack(f) for c, f in zip(h.couplings, fine)]
+        parts = [p for ps in by_level for p in ps]
         rows.append(torch.stack([
-            patch_avgdown_err(torch, h, s0, fine[0], a[2][0],
-                              kw["weights"][0]),
+            patch_avgdown_err(torch, h, s0, fine, a[2], kw["weights"],
+                              kw.get("parent_sels")),
             s0.scalars[0].abs().max(), h.last_sync_info[1],
             torch.stack([p.scalars[0].min() for p in parts]).min(),
             torch.stack([p.scalars[0].max() for p in parts]).max(),
             torch.stack([torch.isfinite(getattr(p, f)).all().to(
-                s0.vel.dtype) for p in parts for f in STATE_FIELDS]).min()]))
+                s0.vel.dtype) for p in parts for f in STATE_FIELDS]).min()]
+            # then min and max b of each level, the base first
+            + [x for ps in by_level for x in (
+                torch.stack([p.scalars[0].min() for p in ps]).min(),
+                torch.stack([p.scalars[0].max() for p in ps]).max())]))
         return s0, fine
 
     h.advance = advance
@@ -2853,7 +2884,7 @@ def amr_deck_run(torch, deck, device, counters, fronts=False):
     seconds = time.perf_counter() - t0
     total = read_counts(counters)
     return dict(drv=drv, h=h, state=state, fine=drv.fine_state[0],
-                steps=steps, seconds=seconds, launches=total,
+                fines=drv.fine_state, steps=steps, seconds=seconds, launches=total,
                 per_step={k: statistics.mean(l[k] for l in launches)
                           for k in total},
                 reads_advance=statistics.mean(reads),
@@ -2868,24 +2899,36 @@ def amr_deck_run(torch, deck, device, counters, fronts=False):
 
 
 def regrid_log(run):
-    """The placement and every regrid: (step, K, origins, weights)."""
-    p = run["placed"]
-    return [(0, p["K"], p["origins"], p["weights"])] + [
-        (r["step"], r["K"], r["origins"], r["weights"])
-        for r in run["drv"].regrids]
+    """The placement and every regrid: (step, K, origins, weights) of the
+    first refined level."""
+    return [(step, x["K"], x["origins"], x["weights"])
+            for step, x in [(0, run["placed"][0])] + [
+                (r["step"], r["levels"][0]) for r in run["drv"].regrids]]
+
+
+def nested_log(run):
+    """The placement and every regrid: (step, per refined level (K,
+    origins, weights, parent_sel))."""
+    pick = lambda info: [(x["K"], x["origins"], x["weights"],
+                          x["parent_sel"]) for x in info]
+    return [(0, pick(run["placed"]))] + [
+        (r["step"], pick(r["levels"])) for r in run["drv"].regrids]
 
 
 def amr_pair_diffs(a, b):
-    """{level.field: max|a - b| / max|b|} over the base and the refined
-    level of two runs, the potentials gauge-free (per patch)."""
+    """{level.field: max|a - b| / max|b|} over the base and every refined
+    level of two runs ("patches" the first, "level<l>" the deeper), the
+    potentials gauge-free (per patch)."""
     rel = {}
-    for lvl, x, y in (("base", a["state"], b["state"]),
-                      ("patches", a["fine"], b["fine"])):
+    pairs = [("base", a["state"], b["state"], 1)] + [
+        ("patches" if lev == 0 else f"level{lev + 1}", x, y, c.K)
+        for lev, (x, y, c) in enumerate(zip(a["fines"], b["fines"],
+                                            a["h"].couplings))]
+    for lvl, x, y, K in pairs:
         for f in AMR_FIELDS:
             u, v = getattr(x, f), getattr(y, f).to(getattr(x, f).device)
             if f in GAUGE_FIELDS:
-                k = u.shape[0] if lvl == "patches" and \
-                    a["h"].couplings[0].K > 1 else None
+                k = u.shape[0] if K > 1 else None
                 rel[f"{lvl}.{f}"] = max(gauge_free_diff(u[i], v[i])
                                         for i in range(k)) if k else \
                     gauge_free_diff(u, v)
@@ -2895,13 +2938,31 @@ def amr_pair_diffs(a, b):
     return rel
 
 
-def amr_gates(run, label):
+def level_b_ranges(run):
+    """Per level (the base first), [min b, max b] over the run's coarse
+    steps."""
+    rows = run["rows"]
+    return [[min(r[6 + 2 * lev] for r in rows),
+             max(r[7 + 2 * lev] for r in rows)]
+            for lev in range((len(rows[0]) - 6) // 2)]
+
+
+def amr_gates(run, label, unbounded=()):
     """The per-coarse-step gates of an AMR deck run, and zero dropped tags
-    at the placement and after every regrid."""
+    at the placement and after every regrid.  The buoyancy bound holds on
+    every level but those in `unbounded` (levels where the JAX package's
+    numerics leave it too, ROADMAP C.25), whose range is printed."""
     rows = run["rows"]
     if not all(r[5] == 1.0 for r in rows):
         raise PhaseError(f"{label}: non-finite fields")
-    if not all(B_BOUNDS[0] < r[3] and r[4] < B_BOUNDS[1] for r in rows):
+    ranges = level_b_ranges(run)
+    if unbounded:
+        say(f"{label}: b range per level over the run "
+            f"{[[round(x, 4) for x in r] for r in ranges]}; levels "
+            f"{list(unbounded)} are held to finiteness only (ROADMAP C.25)")
+    if not all(B_BOUNDS[0] < lo and hi < B_BOUNDS[1]
+               for lev, (lo, hi) in enumerate(ranges)
+               if lev not in unbounded):
         raise PhaseError(f"{label}: buoyancy left {B_BOUNDS}")
     if not all(r[0] <= AVGDOWN_RTOL * r[1] for r in rows):
         raise PhaseError(f"{label}: the base cells under a patch are not "
@@ -2909,9 +2970,10 @@ def amr_gates(run, label):
     if not all(r[2] < SYNC_RELRES for r in rows):
         raise PhaseError(f"{label}: the sync solve did not reduce its "
                          "composite residual")
-    drops = [run["placed"]["tag_coverage"]] + [
-        r["tag_coverage"] for r in run["drv"].regrids]
-    if any(d[0] != 0 for d in drops):
+    drops = [[x["tag_coverage"] for x in info] for info in
+             [run["placed"]] + [r["levels"]
+                                          for r in run["drv"].regrids]]
+    if any(d[0] != 0 for info in drops for d in info):
         raise PhaseError(f"{label}: tagged cells dropped {drops}")
 
 
@@ -2946,8 +3008,9 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
             total[k] = total.get(k, 0) + v
         rel = amr_pair_diffs(card, runs["cpu"])
         err = max(rel.values())
-        res = max(max(field_diffs(resumed[x], card[x], AMR_FIELDS).values())
-                  for x in ("state", "fine"))
+        res = max(max(field_diffs(x, y, AMR_FIELDS).values())
+                  for x, y in zip((resumed["state"],) + resumed["fines"],
+                                  (card["state"],) + card["fines"]))
         log, cpu_log = regrid_log(card), regrid_log(runs["cpu"])
         c = card["h"].couplings[0]
         say(f"R0 {label} {card['h'].grid0.nx} ratio {c.ratio}, "
@@ -2985,7 +3048,7 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
 
 
 def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
-                   want_k=None):
+                   want_k=None, unbounded=()):
     """R1 / R2: a full-width AMR deck through RunDriver on the card with
     the counts set to 0 just before; prints ms per coarse step (plain and
     regrid steps apart), seconds per regrid, K, origins and tag coverage
@@ -3016,13 +3079,14 @@ def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
            + ",".join(f"{1e3 * t:.3f}" for t in regrid) if regrid else "")
         + "; seconds per regrid "
         + ",".join(f"{r['seconds']:.3f}" for r in drv.regrids)
-        + f"; placement K {run['placed']['K']} origins "
-        f"{run['placed']['origins']} weights {run['placed']['weights']} "
-        f"tag coverage (dropped, tagged) {run['placed']['tag_coverage']}; "
-        "after each regrid (step, K, origins, weights, ext, coverage) "
-        + "; ".join(f"({r['step']}, {r['K']}, {r['origins']}, "
-                    f"{r['weights']}, {r['ext']}, {r['tag_coverage']})"
-                    for r in drv.regrids)
+        + f"; placement K {run['placed'][0]['K']} origins "
+        f"{run['placed'][0]['origins']} weights "
+        f"{run['placed'][0]['weights']} tag coverage (dropped, tagged) "
+        f"{run['placed'][0]['tag_coverage']}; after each regrid (step, K, "
+        "origins, weights, ext, coverage) "
+        + "; ".join(f"({r['step']}, {x['K']}, {x['origins']}, "
+                    f"{x['weights']}, {x['ext']}, {x['tag_coverage']})"
+                    for r in drv.regrids for x in r["levels"][:1])
         + f"; dts {['%.5g' % d for d in drv.dts]}; nt_mults "
         f"{sorted(set(drv.nt_mults))}; launches per coarse step "
         f"{json.dumps(run['per_step'])}; launches in the run "
@@ -3038,7 +3102,18 @@ def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
         + ",".join(f"{r[0] / max(r[1], 1e-30):.2e}" for r in rows)
         + f"; b in [{min(r[3] for r in rows):.4f}, "
         f"{max(r[4] for r in rows):.4f}] on {smi}")
-    amr_gates(run, label)
+    if len(h.couplings) > 1:
+        lv = lambda info: "; ".join(
+            f"level {i + 1}: K {x['K']} ext {x['ext']} origins "
+            f"{x['origins']} weights {x['weights']} parent_sel "
+            f"{x['parent_sel']} tag coverage (dropped, tagged) "
+            f"{x['tag_coverage']}" for i, x in enumerate(info))
+        say(f"{label} levels at placement: {lv(run['placed'])}")
+        for r in drv.regrids:
+            say(f"{label} levels after the regrid of step {r['step']} "
+                f"(from_level {r['from_level']}, {r['seconds']:.3f} s): "
+                f"{lv(r['levels'])}")
+    amr_gates(run, label, unbounded)
     if want_k is not None and not all(
             r[1] == want_k and (r[3] is None or all(w == 1.0 for w in r[3]))
             for r in regrid_log(run)):
@@ -3066,7 +3141,7 @@ def amr_deck_phases(torch, ck, gk, sgk, counters, device, smi, worst,
             files.trees.clear()
         levels = {"base": run["h"].level0}
         levels.update({f"patch {ext}": c.level
-                       for ext, c in run["levels"].items()})
+                       for (_, ext), c in run["levels"].items()})
         plain = levels_kernel_twins(torch, ck, gk, sgk, levels, worst)
         say(f"{key.upper()} kernels against their twins at the padded "
             f"shapes of {list(levels)}; solver levels without a kernel "
@@ -3078,6 +3153,182 @@ def amr_deck_phases(torch, ck, gk, sgk, counters, device, smi, worst,
     cli_phase(device, files, deck=R0_DECK, label="AMR deck")
     say(f"phase R-CLI: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------------
+# phases 27-29: nested refined levels (amr.maxlevel = 2)
+# --------------------------------------------------------------------------
+#: N0's first deck: R0_DECK with a second refined level at the DEM_2D-style
+#: ratio (4,2) (tests/test_amr.py:167-169), both levels regridded every 2
+#: steps: 16 level-2 substeps per coarse step
+N0_DECK = R0_DECK.replace("amr.maxlevel = 1", "amr.maxlevel = 2").replace(
+    "amr.refratio_lev0 = 4 1",
+    "amr.refratio_lev0 = 4 1\namr.refratio_lev1 = 4 2")
+#: N0's second deck: R0_TWO_FRONTS with two refined levels at ratio (2,1)
+#: and two patches pinned at each: two level-1 patches, each the parent
+#: of a level-2 patch (tests/test_amr.py:1014)
+N0_TWO_CHAINS = R0_TWO_FRONTS.replace(
+    "amr.maxlevel = 1", "amr.maxlevel = 2").replace(
+    "amr.refratio_lev0 = 4 1",
+    "amr.refratio_lev0 = 2 1\namr.refratio_lev1 = 2 1") \
+    + "amr.max_patches = 2 2\n"
+#: N1: R1's deck with a second refined level at ratio (4,1,2) (x by 4, z
+#: by 2, the DEM_2D-style second ratio in 3D; nt 4 at both levels, so 16
+#: level-2 substeps per coarse step), both levels regridded every 5
+#: steps, 10 coarse steps, files at step 10; amr.grid_buffer_size at its
+#: default 1
+N1_DECK = R1_DECK.replace("amr.maxlevel = 1", "amr.maxlevel = 2").replace(
+    "amr.refratio_lev0 = 4 1 1",
+    "amr.refratio_lev0 = 4 1 1\namr.refratio_lev1 = 4 1 2").replace(
+    "amr.regrid_intervals = 5", "amr.regrid_intervals = 5 5").replace(
+    "amr.maxsteps = 40", "amr.maxsteps = 10")
+#: the levels of N1 held to finiteness, not to B_BOUNDS: at R1's
+#: CFL-limited dts the JAX package's nested level grows a grid-scale
+#: overshoot of b at the lock's interface (ROADMAP C.25), so N1 prints
+#: each level's b range and bounds the base and level 1 only
+N1_UNBOUNDED = (2,)
+#: the level-1 patch of R1 and N1 (A2's ext) and N1's second ratio, for
+#: the level-2 footprint reckoned before the run
+N1_LEVEL1_EXT, N1_RATIO2 = (384, 128, 128), (4, 1, 2)
+
+
+def nested_card_vs_cpu(torch, device, counters, files):
+    """N0: each three-level 2D deck through RunDriver on the CPU and on the
+    card: the same K, origins, weights and parent selections on every
+    level at the placement and after every regrid, the same
+    dynamic-subcycling factors, every field of every level within
+    R0_RTOL (the potentials gauge-free); both level-1 patches active with
+    an active child each in N0_TWO_CHAINS; then on the card the run
+    resumed from its mid-run checkpoint, equal to the uninterrupted one
+    (DRIVER_RTOL).  Returns the card's launches of both decks."""
+    total = {}
+    for label, deck, fronts in (("three levels", N0_DECK, False),
+                                ("two chains", N0_TWO_CHAINS, True)):
+        runs = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_n0_") as out:
+            cwd = os.getcwd()
+            os.chdir(out)
+            try:
+                t0 = time.perf_counter()
+                runs["cpu"] = amr_deck_run(torch, deck, "cpu", counters,
+                                           fronts)
+                t_cpu = time.perf_counter() - t0
+                card = runs[device] = amr_deck_run(torch, deck, device,
+                                                   counters, fronts)
+                resumed = amr_deck_run(
+                    torch, deck + "amr.restart_file = chkpt_000003.hdf5\n",
+                    device, counters, fronts)
+            finally:
+                os.chdir(cwd)
+        if files is not None:
+            files.trees.clear()
+        for k, v in card["launches"].items():
+            total[k] = total.get(k, 0) + v
+        rel = amr_pair_diffs(card, runs["cpu"])
+        err = max(rel.values())
+        res = max(max(field_diffs(x, y, AMR_FIELDS).values())
+                  for x, y in zip((resumed["state"],) + resumed["fines"],
+                                  (card["state"],) + card["fines"]))
+        log, cpu_log = nested_log(card), nested_log(runs["cpu"])
+        h = card["h"]
+        say(f"N0 {label} {h.grid0.nx} ratios {h.ratios}, {card['steps']} "
+            f"coarse steps on {device} ({card['seconds']:.2f} s) and on the "
+            f"CPU ({t_cpu:.2f} s): (step, per level (K, origins, weights, "
+            f"parent_sel)) at placement and every regrid {log} (CPU "
+            f"{'the same' if log == cpu_log else cpu_log}); regrids from "
+            f"levels {[r['from_level'] for r in card['drv'].regrids]}; "
+            f"exts {[list(c.ext_nx) for c in h.couplings]}; dts "
+            f"{['%.6g' % d for d in card['drv'].dts]}; nt_mults "
+            f"{card['drv'].nt_mults} (CPU {'the same' if card['drv'].nt_mults == runs['cpu']['drv'].nt_mults else runs['cpu']['drv'].nt_mults}); "
+            "card against CPU max|diff|/max|field| "
+            + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+            + f" (limit {R0_RTOL}); resumed from chkpt_000003 against the "
+            f"uninterrupted run {res:.3e} (limit {DRIVER_RTOL}); sync relres "
+            "per step " + ",".join(f"{r[2]:.3e}" for r in card["rows"])
+            + "; average-down max|diff|/max|b| per step "
+            + ",".join(f"{r[0] / max(r[1], 1e-30):.2e}" for r in card["rows"])
+            + f"; launches {json.dumps(card['launches'])}")
+        amr_gates(card, f"N0 {label}")
+        if log != cpu_log or card["drv"].nt_mults != runs["cpu"][
+                "drv"].nt_mults:
+            raise PhaseError(f"N0 {label}: the card placed or regridded "
+                             "the patches otherwise than the CPU")
+        if not err <= R0_RTOL:
+            raise PhaseError(f"N0 {label}: the card's run differs from the "
+                             "CPU's")
+        if not (res <= DRIVER_RTOL and resumed["steps"] == card["steps"]
+                and nested_log(resumed)[-1][1:] == log[-1][1:]):
+            raise PhaseError(f"N0 {label}: the resumed run differs")
+        if len(h.couplings) != 2:
+            raise PhaseError(f"N0 {label}: {len(h.couplings)} refined "
+                             "levels, not 2")
+        if fronts:
+            for step, levels in log:
+                (k1, _, w1, _), (k2, _, w2, ps2) = levels
+                chains = sorted({p for p, w in zip(ps2, w2) if w > 0})
+                if not (k1 == 2 and w1 == [1.0, 1.0] and chains == [0, 1]):
+                    raise PhaseError(
+                        f"N0 {label}: at step {step} level 1 has K {k1} "
+                        f"weights {w1}, level 2's active patches nest in "
+                        f"{chains}: not two chains")
+        check_launched(card["launches"], AMR_PATH_2D, f"N0 {label}")
+    return total
+
+
+def nested_phases(torch, ck, gk, sgk, counters, device, smi, worst, files):
+    """N0, N1 and N2, each printing its seconds: the three-level decks
+    card against CPU, R1's deck at three levels at full width (the
+    level-2 footprint reckoned first), then K1-K8 against their twins at
+    the level-2 shapes N1 reached and on their solver hierarchies.
+    Returns {phase: (launches, launches per coarse step)}."""
+    import math
+    from somar_tpu_torch.amr.hierarchy import patch_footprint
+    out = {}
+    t0 = time.perf_counter()
+    out["n0"] = (nested_card_vs_cpu(torch, device, counters, files), {})
+    say(f"phase N0: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    interior, ext = patch_footprint(N1_LEVEL1_EXT, (False, True, False),
+                                    N1_RATIO2)
+    say(f"N1 level-2 footprint reckoned by patch_footprint over the level-1 "
+        f"patch ext {N1_LEVEL1_EXT} at ratio {N1_RATIO2}, before the "
+        f"parent's halo and the nest buffer: interior {interior} ext {ext} "
+        f"= {math.prod(ext)} cells; with the parent's halo: "
+        f"{patch_footprint(N1_LEVEL1_EXT, (False, True, False), N1_RATIO2, parent_halo=(4, 0, 0))}")
+    run = amr_deck_phase(torch, device, counters, smi, "N1", N1_DECK,
+                         unbounded=N1_UNBOUNDED)
+    if files is not None:
+        files.trees.clear()
+    h = run["h"]
+    say(f"N1 built footprints (ext per level, cells): "
+        + "; ".join(f"level {lev + 1} {c.ext_nx} = {math.prod(c.ext_nx)} "
+                    f"x K {c.K}" for lev, c in enumerate(h.couplings)))
+    if len(h.couplings) != 2:
+        raise PhaseError(f"N1: {len(h.couplings)} refined levels, not 2")
+    out["n1"] = (run["launches"], run["per_step"])
+    say(f"phase N1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    levels = {f"level {lev} {ext}": c.level
+              for (lev, ext), c in run["levels"].items() if lev >= 2}
+    del run, h
+    plain = levels_kernel_twins(torch, ck, gk, sgk, levels, worst)
+    say(f"N2 kernels against their twins at the padded shapes of "
+        f"{list(levels)}; solver levels without a kernel plan (plain "
+        f"path): {json.dumps(plain)}")
+    say(f"phase N2: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def json_finite(x):
+    """x with every non-finite float (a device time the profiler did not
+    see, NaN) as None, so that the kernels line is strict JSON."""
+    if isinstance(x, dict):
+        return {k: json_finite(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [json_finite(v) for v in x]
+    if isinstance(x, float) and not math.isfinite(x):
+        return None
+    return x
 
 
 def main() -> int:
@@ -3171,6 +3422,8 @@ def main() -> int:
                      errs)
     amr_r = amr_deck_phases(torch, ck, gk, sgk, counters, device, smi, errs,
                             files)
+    amr_n = nested_phases(torch, ck, gk, sgk, counters, device, smi, errs,
+                          files)
 
     k6_levels = {}
     for shape, (ms, plain, dev) in k6_times.items():
@@ -3247,7 +3500,10 @@ def main() -> int:
             launches_r1=amr_r["r1"][0][name],
             launches_per_r1_coarse_step=amr_r["r1"][1][name],
             launches_r2=amr_r["r2"][0][name],
-            launches_per_r2_coarse_step=amr_r["r2"][1][name])
+            launches_per_r2_coarse_step=amr_r["r2"][1][name],
+            launches_n0=amr_n["n0"][0][name],
+            launches_n1=amr_n["n1"][0][name],
+            launches_per_n1_coarse_step=amr_n["n1"][1][name])
         if name in flat_times:
             entry_["flattened_leptic_level"] = flat_times[name]
         if name == "ppm_predict":
@@ -3258,7 +3514,7 @@ def main() -> int:
     say(f"smoother launches per 4-sweep relax call by level: "
         f"{json.dumps(relax)}")
     say(f"card: {smi}")
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": json_finite(kernels)}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,26 +1,28 @@
-"""Composite two-level elliptic solver over the AMR hierarchy (PyTorch port
-of `somar_tpu.amr.composite` for one refined level of K patches).
+"""Composite multi-level elliptic solver over the AMR hierarchy (PyTorch
+port of `somar_tpu.amr.composite` on Cartesian grids).
 
-One composite pass is a multiplicative two-level pass across the
-refinement boundary:
+One composite pass is a multiplicative pass across every refinement
+boundary:
 
-  top-down   solve the base level, then each patch with the QUADRATIC CF
-             ghost-potential ring interpolated from the new base solution
-             folded into its rhs;
-  bottom-up  average each patch solution down onto the base cells it
+  top-down   solve the base level, then each refined level's patches with
+             the QUADRATIC CF ghost-potential ring interpolated from the
+             new solution of its parent patch folded into the rhs;
+  bottom-up  average each patch solution down onto the parent cells it
              covers (blended by the patch's weight at K > 1, so that a
-             weight-0 slot leaves the base as it is).
+             weight-0 slot leaves its parent as it is), finest first.
 
-With FAS tau, the base level's covered-cell equation becomes the
-restricted patch equation (rhs_par := L_par(phi_par) + R(rhs_f -
-L_f(phi_f))); with the elliptic reflux, the base rhs at the uncovered
-cells next to each interface carries the fine-minus-coarse flux deficit
-of the current iterate (times the patch's weight).  Convergence is read
-from the COMPOSITE residual: per level r = rhs - L(phi; ring ghosts),
-base cells covered by an active patch masked, the base cells next to the
-interfaces reflux-corrected, each patch's max-norm times its weight.
-Each level solves with its projector's solver (spectral, multigrid,
-BiCGStab or leptic) under the solve's `purpose` ("sync").
+With FAS tau, a parent's covered-cell equation becomes the restricted
+child equation (rhs_par := L_par(phi_par; its own ring) + R(rhs_f -
+L_f(phi_f))), applied fine to coarse so deeper corrections reach the
+base, each child's into its own parent patch; with the elliptic reflux,
+the parent's rhs at the uncovered cells next to each interface carries the
+fine-minus-coarse flux deficit of the current iterate (times the patch's
+weight).  Convergence is read from the COMPOSITE residual: per level r =
+rhs - L(phi; ring ghosts), each parent patch's cells covered by an active
+child of its own masked, the cells next to the interfaces
+reflux-corrected, each patch's max-norm times its weight.  Each level
+solves with its projector's solver (spectral, multigrid, BiCGStab or
+leptic) under the solve's `purpose` ("sync").
 """
 
 from __future__ import annotations
@@ -41,57 +43,68 @@ class CompositeParams:
 
 
 class AMRCompositeSolver:
-    """Composite solve of L phi = rhs over [base level, refined level] of
-    an AMRHierarchy with one coupling of K patches."""
+    """Composite solve of L phi = rhs over the base level and every
+    refined level of an AMRHierarchy.
+
+    Fields are per level: the base level's tensor, then per refined level
+    its per-patch tensors (`solve_patches`) or, in the JAX form, its
+    K-stacked tensor (`solve`, `composite_residual`).  args are the
+    hierarchy's per-level (origins, weights, parent index) per patch
+    (`AMRHierarchy._patch_args`)."""
 
     def __init__(self, hierarchy, params: CompositeParams = CompositeParams()):
-        if len(hierarchy.couplings) != 1:
-            raise NotImplementedError(
-                "composite solves over nested levels are slice 11 of the "
-                "port's AMR (ROADMAP A.5)")
         self.h = hierarchy
         self.params = params
 
     # --------------------------------------------------- the public forms
-    def _patch_args(self, origins, weights):
-        c = self.h.couplings[0]
-        w = weights[0] if isinstance(weights, (list, tuple)) else weights
-        return c.patch_origins(origins[0]), c.patch_weights(w)
+    def _args(self, origins, weights, parent_sels):
+        if weights is not None and not isinstance(weights, (list, tuple)):
+            weights = [weights]
+        return self.h._patch_args(list(origins), weights, parent_sels)
 
-    def _as_list(self, field):
-        """The per-patch tensors of a refined-level field (K-stacked at
-        K > 1, or already a list)."""
-        c = self.h.couplings[0]
-        if isinstance(field, (list, tuple)):
-            return list(field)
-        return [field[k] for k in range(c.K)] if c.K > 1 else [field]
+    def _as_lists(self, fields):
+        """[base tensor, per refined level its per-patch tensors] of
+        fields K-stacked at K > 1 (or already lists)."""
+        out = [fields[0]]
+        for c, f in zip(self.h.couplings, fields[1:]):
+            if isinstance(f, (list, tuple)):
+                out.append(list(f))
+            else:
+                out.append([f[k] for k in range(c.K)] if c.K > 1 else [f])
+        return out
 
-    def composite_residual(self, phis, rhss, origins, weights=None):
+    def composite_residual(self, phis, rhss, origins, weights=None,
+                           parent_sels=None):
         """Max-norm of the composite residual (a 0-d tensor).  phis /
-        rhss: [base, refined level (K-stacked at K > 1)]."""
-        origs, ws = self._patch_args(origins, weights)
-        return self._residual(phis[0], self._as_list(phis[1]), rhss[0],
-                              self._as_list(rhss[1]), origs, ws)
+        rhss: [base, each refined level (K-stacked at K > 1)]; origins,
+        weights and parent_sels per refined level."""
+        return self._residual(self._as_lists(phis), self._as_lists(rhss),
+                              self._args(origins, weights, parent_sels))
 
-    def solve(self, rhss, origins, weights=None):
-        """Composite solve from zero.  rhss: [base rhs, refined level's
-        rhs (K-stacked at K > 1)]; origins / weights: one entry for the
-        refined level.  Returns (phis in the same form, (passes, final
-        relative composite residual as a 0-d tensor))."""
-        origs, ws = self._patch_args(origins, weights)
-        (phi0, phi1), info = self.solve_patches(
-            [rhss[0], self._as_list(rhss[1])], origs, ws)
-        c = self.h.couplings[0]
-        return [phi0, torch.stack(phi1) if c.K > 1 else phi1[0]], info
+    def solve(self, rhss, origins, weights=None, parent_sels=None):
+        """Composite solve from zero.  rhss: [base rhs, each refined
+        level's rhs (K-stacked at K > 1)]; origins, weights and
+        parent_sels per refined level.  Returns (phis in the same form,
+        (passes, final relative composite residual as a 0-d tensor))."""
+        phis, info = self.solve_patches(
+            self._as_lists(rhss), self._args(origins, weights, parent_sels))
+        return [phis[0]] + [torch.stack(p) if c.K > 1 else p[0]
+                            for c, p in zip(self.h.couplings,
+                                            phis[1:])], info
 
     # ------------------------------------------------------------- pieces
-    def _covered_mask(self, origs, ws):
-        """True on the base cells that an active patch interior covers."""
-        c = self.h.couplings[0]
+    def _level(self, lev: int):
+        """The level object of level lev (0: the base)."""
+        return self.h.level0 if lev == 0 else self.h.couplings[lev - 1].level
+
+    def _covered_mask(self, lev: int, p: int, args):
+        """True on the cells of level lev (its patch p; the base at lev =
+        0) that an active patch of level lev + 1 nested in it covers."""
+        c = self.h.couplings[lev]
         mask = torch.zeros(c.parent_grid.shape, dtype=torch.bool,
                            device=c.device)
-        for o, w in zip(origs, ws):
-            if w is not None and w <= 0.0:
+        for o, w, q in zip(*args[lev]):
+            if q != p or (w is not None and w <= 0.0):
                 continue
             mask[tuple(slice(a, a + s) for a, s in zip(
                 c.covered_origin_c(o), c.covered_shape_c))] = True
@@ -101,7 +114,7 @@ class AMRCompositeSolver:
     def _reflux_fold(c, level, par_level, phi_f, ring, ph_par, origin_f,
                      target, sign, weight=None):
         """target + sign * weight * Jinv * (+/-) deltaF/dx at the
-        uncovered base cells next to the interface, deltaF =
+        uncovered parent cells next to the interface, deltaF =
         <F_fine(phi_f; ring)> - F_coarse(ph_par)."""
         fr = PatchFluxRegister(c)
         reg = fr.increment_fine(
@@ -112,34 +125,54 @@ class AMRCompositeSolver:
                          sign if weight is None else sign * weight,
                          par_level.projector.op.geo)
 
-    def _residual(self, phi0, phi1, rhs0, rhs1, origs, ws):
+    def _residual(self, phis, rhss, args):
         h = self.h
-        c = h.couplings[0]
-        level0, level = h.level0, c.level
-        res0 = level0.projector.op.residual(phi0, rhs0)
-        worst = []
-        for k, (o, w) in enumerate(zip(origs, ws)):
-            ring = c._ring(phi0, o)
-            rr = level.projector.op.residual(
-                phi1[k], rhs1[k] - level.projector._rhs_ring_correction(ring))
-            res0 = self._reflux_fold(c, level, level0, phi1[k], ring, phi0,
-                                     o, res0, +1.0, w)
-            m = rr.abs().max()
-            worst.append(m if w is None else m * w)
-        res0 = torch.where(self._covered_mask(origs, ws),
-                           torch.zeros((), dtype=res0.dtype,
-                                       device=res0.device), res0)
-        return torch.maximum(res0.abs().max(), torch.stack(worst).max())
+        res = [[h.level0.projector.op.residual(phis[0], rhss[0])]]
+        for lev, c in enumerate(h.couplings):
+            level, par_level = c.level, self._level(lev)
+            par_phis = [phis[0]] if lev == 0 else phis[lev]
+            rrs = []
+            for k, (o, w, p) in enumerate(zip(*args[lev])):
+                ring = c._ring(par_phis[p], o)
+                rrs.append(level.projector.op.residual(
+                    phis[lev + 1][k],
+                    rhss[lev + 1][k]
+                    - level.projector._rhs_ring_correction(ring)))
+                res[lev][p] = self._reflux_fold(
+                    c, level, par_level, phis[lev + 1][k], ring,
+                    par_phis[p], o, res[lev][p], +1.0, w)
+            res.append(rrs)
+        norms = []
+        for lev, rl in enumerate(res):
+            ws = [None] if lev == 0 else args[lev - 1][1]
+            for p, (r, w) in enumerate(zip(rl, ws)):
+                if lev < len(h.couplings):
+                    r = torch.where(self._covered_mask(lev, p, args),
+                                    torch.zeros((), dtype=r.dtype,
+                                                device=r.device), r)
+                m = r.abs().max()
+                norms.append(m if w is None else m * w)
+        return torch.stack(norms).max()
 
-    def _tau_corrected(self, phis, rhss, origs, ws, rings):
-        """The base rhs with the FAS tau of each patch's residual written
-        over the cells it covers (blended by its weight at K > 1)."""
-        h = self.h
-        c = h.couplings[0]
-        level = c.level
-        apply_par = h.level0.projector.op.apply(phis[0])
-        par = rhss[0]
-        for k, (o, w) in enumerate(zip(origs, ws)):
+    def _tau_corrected(self, phis, rhss, lev, args, rings, par_rings):
+        """Level lev's rhs (the base tensor, or the per-patch list of a
+        refined level) with the FAS tau of each child patch's residual
+        written over the parent cells it covers, in its own parent patch
+        (blended by its weight at K > 1).  phis / rhss: [level lev's,
+        level lev + 1's]; rings: the children's CF rings; par_rings: the
+        parent patches' own (None for the base)."""
+        c = self.h.couplings[lev]
+        level, par_level = c.level, self._level(lev)
+        par_phis = phis[0] if lev > 0 else [phis[0]]
+        par = list(rhss[0]) if lev > 0 else [rhss[0]]
+        apply_par = {}
+        for k, (o, w, p) in enumerate(zip(*args[lev])):
+            if p not in apply_par:
+                ap = par_level.projector.op.apply(par_phis[p])
+                if par_rings is not None:
+                    ap = ap + par_level.projector._rhs_ring_correction(
+                        par_rings[p])
+                apply_par[p] = ap
             rf = rhss[1][k] - (level.projector.op.apply(phis[1][k])
                                + level.projector._rhs_ring_correction(
                                    rings[k]))
@@ -147,62 +180,86 @@ class AMRCompositeSolver:
                                                  c.int_shape),
                                    c.ext_grid, c.ratio)
             origin_c = c.covered_origin_c(o)
-            tau = extract_patch(apply_par, origin_c, Rrf.shape) + Rrf
+            tau = extract_patch(apply_par[p], origin_c, Rrf.shape) + Rrf
             if w is not None:
-                cur = extract_patch(par, origin_c, Rrf.shape)
+                cur = extract_patch(par[p], origin_c, Rrf.shape)
                 tau = cur + w * (tau - cur)
-            par = insert_patch(par, tau, origin_c)
-        return par
+            par[p] = insert_patch(par[p], tau, origin_c)
+        return par if lev > 0 else par[0]
 
-    def _lagged_reflux(self, phis, par, origs, ws, rings):
-        """par plus each patch's elliptic reflux of the last pass's
-        potentials at the uncovered base cells next to its interface."""
-        h = self.h
-        c = h.couplings[0]
-        for k, (o, w) in enumerate(zip(origs, ws)):
-            par = self._reflux_fold(c, c.level, h.level0, phis[1][k],
-                                    rings[k], phis[0], o, par, +1.0, w)
-        return par
+    def _lagged_reflux(self, phis, par, lev, args, rings):
+        """par (level lev's rhs) plus each child patch's elliptic reflux
+        of the last pass's potentials at the uncovered cells next to its
+        interface, in its own parent patch."""
+        c = self.h.couplings[lev]
+        par_phis = phis[0] if lev > 0 else [phis[0]]
+        out = list(par) if lev > 0 else [par]
+        for k, (o, w, p) in enumerate(zip(*args[lev])):
+            out[p] = self._reflux_fold(c, c.level, self._level(lev),
+                                       phis[1][k], rings[k], par_phis[p],
+                                       o, out[p], +1.0, w)
+        return out if lev > 0 else out[0]
 
-    def solve_patches(self, rhss, origs, ws):
+    def solve_patches(self, rhss, args):
         """Composite solve from zero on per-patch lists: rhss = [base
-        rhs, [patch rhs ...]], origs / ws per patch (ws None entries at
-        K = 1).  Returns ((phi0, [phi_k ...]), (passes, relres))."""
+        rhs, per refined level [patch rhs ...]].  Returns (phis in the
+        same form, (passes, relres))."""
         h = self.h
         p = self.params
-        c = h.couplings[0]
-        phis = [torch.zeros_like(rhss[0]),
-                [torch.zeros_like(r) for r in rhss[1]]]
+        nc = len(h.couplings)
+        phis = [torch.zeros_like(rhss[0])] + [
+            [torch.zeros_like(r) for r in rl] for rl in rhss[1:]]
 
         def one_pass(phis):
-            rings = [c._ring(phis[0], o) for o in origs]
-            par = self._tau_corrected(phis, rhss, origs, ws, rings)
-            par = self._lagged_reflux(phis, par, origs, ws, rings)
-            phi0, _ = h.level0.projector._solve(par, phi0=phis[0],
+            rings = []
+            for lev, c in enumerate(h.couplings):
+                par_phis = [phis[0]] if lev == 0 else phis[lev]
+                rings.append([c._ring(par_phis[q], o)
+                              for o, _, q in zip(*args[lev])])
+            eff = list(rhss)
+            for lev in range(nc - 1, -1, -1):
+                view = [phis[lev], phis[lev + 1]]
+                par = self._tau_corrected(view, [eff[lev], eff[lev + 1]],
+                                          lev, args, rings[lev],
+                                          rings[lev - 1] if lev > 0
+                                          else None)
+                eff[lev] = self._lagged_reflux(view, par, lev, args,
+                                               rings[lev])
+            phi0, _ = h.level0.projector._solve(eff[0], phi0=phis[0],
                                                 purpose=p.purpose)
-            phi1 = []
-            for k, o in enumerate(origs):
-                rhs_f = rhss[1][k] - c.level.projector._rhs_ring_correction(
-                    c._ring(phi0, o))
-                out, _ = c.level.projector._solve(rhs_f, phi0=phis[1][k],
-                                                  purpose=p.purpose)
-                phi1.append(out)
-            for k, (o, w) in enumerate(zip(origs, ws)):
-                phi0 = self._avg_down_phi(c, phi0, phi1[k], o, w)
-            return [phi0, phi1]
+            new = [phi0]
+            for lev, c in enumerate(h.couplings):
+                par_phis = [phi0] if lev == 0 else new[lev]
+                outs = []
+                for k, (o, _, q) in enumerate(zip(*args[lev])):
+                    rhs_f = eff[lev + 1][k] \
+                        - c.level.projector._rhs_ring_correction(
+                            c._ring(par_phis[q], o))
+                    out, _ = c.level.projector._solve(
+                        rhs_f, phi0=phis[lev + 1][k], purpose=p.purpose)
+                    outs.append(out)
+                new.append(outs)
+            for lev in range(nc - 1, -1, -1):
+                c = h.couplings[lev]
+                for k, (o, w, q) in enumerate(zip(*args[lev])):
+                    if lev == 0:
+                        new[0] = self._avg_down_phi(c, new[0], new[1][k],
+                                                    o, w)
+                    else:
+                        new[lev][q] = self._avg_down_phi(
+                            c, new[lev][q], new[lev + 1][k], o, w)
+            return new
 
-        res0 = torch.clamp_min(self._residual(phis[0], phis[1], rhss[0],
-                                              rhss[1], origs, ws), 1e-30)
+        res0 = torch.clamp_min(self._residual(phis, rhss, args), 1e-30)
         res = res0
         for _ in range(p.iters):
             phis = one_pass(phis)
-            res = self._residual(phis[0], phis[1], rhss[0], rhss[1],
-                                 origs, ws)
-        return (phis[0], phis[1]), (p.iters, res / res0)
+            res = self._residual(phis, rhss, args)
+        return phis, (p.iters, res / res0)
 
     @staticmethod
     def _avg_down_phi(c, par, phi_f, origin_f, weight=None):
-        """The patch potential's interior average written over the base
+        """The patch potential's interior average written over the parent
         cells it covers (blended by weight)."""
         avg = restrict_average(extract_patch(phi_f, c.int_start,
                                              c.int_shape),

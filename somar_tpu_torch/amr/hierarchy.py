@@ -1,34 +1,43 @@
-"""The two-level AMR hierarchy: a base level and one refined level of K
-same-shape patches, subcycled (PyTorch port of the one-refined-level part
-of `somar_tpu.amr.hierarchy`).
+"""The AMR hierarchy: a base level and nested refined levels of K
+same-shape patches each, subcycled (PyTorch port of
+`somar_tpu.amr.hierarchy` on Cartesian grids).
 
   * A patch is a dense rectangular block of static shape that spans the
     vertical and every periodic direction; its other horizontal sides are
     coarse-fine (CF) interfaces.  It carries an ADVECT_GROW halo on its CF
-    sides, refreshed from space-time interpolated base data before every
+    sides, refreshed from space-time interpolated parent data before every
     substep; its projections take the CF ghost-potential rings
-    (quadratically interpolated base potentials folded into the rhs).
+    (quadratically interpolated parent potentials folded into the rhs).
+  * Levels nest: level l+1's patches live inside level l's patches, each
+    in the parent patch its `parent_sel` names, with their donor slabs
+    kept `grid_buffer_size` parent cells inside the parent's own CF halo
+    (the nest buffer).  Ratios are per level and may be anisotropic
+    (amr.refratio_lev0 = 4 1, amr.refratio_lev1 = 4 2, ...).
   * Origins are host ints (per array axis, in fine cells, of the extended
-    patch), so every transfer is plain indexing.  A level of K > 1
-    patches keeps the JAX layout: its state has a leading K axis, its
-    origins are (K, ndim) and its weights (K,); a weight-0 slot
-    duplicates slot 0, advances as it does, and adds nothing to the base.
-  * Placement and regrid are host work: the base state is tagged
-    (amr/tagging.py), clustered (native/, Berger-Rigoutsos) and the
-    patches centred on the clusters.  Right-sizing doubles K (1 -> 2 ->
-    4 ..., up to max_auto_patches, unless num_patches pins it) and then
-    widens the footprint until no tagged cell is dropped; a regrid fills
-    the new patches from the base and copies the old patches' data where
-    they overlap in global fine index space.
-  * One coarse step (`advance`): the base advance, nt = max(ratio) (times
-    the dynamic-subcycling factor nt_mults) subcycled advances of every
-    patch between the old and new base states, average-down, and the
-    composite sync projection (amr/composite.py) with the elliptic reflux
-    of each CF interface.
+    patch, relative to the parent array's corner), so every transfer is
+    plain indexing.  A level of K > 1 patches keeps the JAX layout: its
+    state has a leading K axis, its origins are (K, ndim) and its weights
+    (K,); a weight-0 slot duplicates slot 0, advances as it does, and adds
+    nothing to its parent.
+  * Placement and regrid are host work, coarse to fine: each parent patch
+    is tagged (amr/tagging.py), clustered (native/, Berger-Rigoutsos) and
+    the patches centred on the clusters.  Right-sizing doubles K (1 -> 2
+    -> 4 ..., up to max_auto_patches, unless num_patches pins it), then
+    widens the footprint, and at placement widens the parent when proper
+    nesting keeps a level from its tags; a regrid fills the new patches
+    from their parents and copies the old patches' data where they overlap
+    in the level's global fine index space.  regrid(from_level) keeps the
+    levels above from_level + 1 as they are.
+  * One coarse step (`advance`): the base advance, then recursively for
+    each refined level nt = max(ratio) (times the dynamic-subcycling
+    factor nt_mults) substeps between its parent's states, the next level
+    subcycling inside every substep, average-down into each patch's
+    parent, and the composite sync projection over all levels
+    (amr/composite.py) with the elliptic reflux of each CF interface.
 
-What the JAX package has beyond this (nested levels and parent selection,
-mapped patches, refluxing, the VD correction, post-regrid smoothing,
-sharded steps) raises NotImplementedError naming slice 11 of the port.
+What the JAX package has beyond this (mapped patches, refluxing, the VD
+correction, post-regrid smoothing, sharded steps) raises
+NotImplementedError naming slice 11 of the port.
 """
 
 from __future__ import annotations
@@ -106,20 +115,24 @@ def _edge_pad(t, ax: int, n: int):
 
 def patch_footprint(parent_nx: Sequence[int], periodic: Sequence[bool],
                     ratio: Sequence[int], patch_frac: float = 0.5,
-                    max_grid_size: int = 0, halo: int = ADVECT_GROW):
-    """The static patch shape over a base level of `parent_nx` cells per
+                    max_grid_size: int = 0, halo: int = ADVECT_GROW,
+                    parent_halo: Optional[Sequence[int]] = None):
+    """The static patch shape over a parent array of `parent_nx` cells per
     logical direction: (interior_nx, ext_nx) in fine cells.
 
     The patch spans the vertical (the last direction) and every periodic
     direction; on the others (CF directions) the interior is patch_frac of
-    the refined extent, capped by max_grid_size, rounded down to a
-    multiple of 2r, at least 4 halo and at most the refined extent less
-    max(halo r, halo + r) at each end.  Along x (direction 0) an extended
-    extent (interior + 2 halo) above 128 snaps to the next multiple of 128
-    that a 2r-aligned interior reaches (else the largest below): the JAX
-    package's lane-padding rule, kept so that footprints match it."""
+    the refined extent of the parent's valid cells (those inside its own
+    CF halo, `parent_halo` per logical direction: none for the base),
+    capped by max_grid_size, rounded down to a multiple of 2r, at least 4
+    halo and at most that extent less max(halo r, halo + r) at each end.
+    Along x (direction 0) an extended extent (interior + 2 halo) above 128
+    snaps to the next multiple of 128 that a 2r-aligned interior reaches
+    (else the largest below): the JAX package's lane-padding rule, kept so
+    that footprints match it."""
     ndim = len(parent_nx)
     H = halo
+    ph = (0,) * ndim if parent_halo is None else tuple(parent_halo)
     interior = []
     cf = []
     for d in range(ndim):
@@ -128,7 +141,7 @@ def patch_footprint(parent_nx: Sequence[int], periodic: Sequence[bool],
             interior.append(parent_nx[d] * r)
             continue
         cf.append(d)
-        n_f = parent_nx[d] * r
+        n_f = (parent_nx[d] - 2 * ph[d]) * r
         want = int(round(patch_frac * n_f))
         if max_grid_size > 0:
             want = min(want, max_grid_size)
@@ -196,28 +209,42 @@ class PatchNSLevel(NSLevel):
 
 
 class PatchCoupling:
-    """The refined level (K same-shape patches) and its coupling to the
-    base level.
+    """One refined level (K same-shape patches) and its coupling to its
+    parent level: the base level, or the patches of the level above.
 
-    Origins are per ARRAY axis, in fine cells, of the EXTENDED patch
-    relative to the base array's corner (host ints): an (ndim,) array at
-    K = 1, a (K, ndim) array with (K,) weights at K > 1, where a weight-0
-    slot duplicates slot 0 and adds nothing to the base level."""
+    `parent_grid` is the whole parent array's grid (the base domain, or
+    the parent's extended patch grid); `parent_halo_axes` is the parent's
+    own CF halo per array axis (0 for the base), which the donor slabs
+    avoid, `nest_buffer` parent cells more.  Origins are per ARRAY axis,
+    in fine cells, of the EXTENDED patch relative to the parent array's
+    corner (host ints): an (ndim,) array at K = 1, a (K, ndim) array with
+    (K,) weights at K > 1, where a weight-0 slot duplicates slot 0 and
+    adds nothing to its parent.  Under a parent of several patches,
+    parent_sel[k] is the parent patch that slot k nests in."""
 
     def __init__(self, parent_geo, problem: Problem, params: NSParams,
                  ratio: Tuple[int, ...], use_subcycling: bool = True,
                  max_grid_size: int = 0, patch_frac: float = 0.5,
-                 num_patches: int = 1):
+                 num_patches: int = 1,
+                 parent_halo_axes: Optional[Tuple[int, ...]] = None,
+                 nest_buffer: int = 0, root_geo_source=None):
         parent_grid: Grid = parent_geo.grid
         if not parent_geo.is_uniform:
             raise _slice11("a mapped base level (patches with their own "
                            "metric)")
         ndim = parent_grid.ndim
         self.parent_grid = parent_grid
+        self.parent_halo_axes = ((0,) * ndim if parent_halo_axes is None
+                                 else tuple(int(h)
+                                            for h in parent_halo_axes))
+        #: the proper-nesting buffer in parent cells (amr.grid_buffer_size)
+        #: between the donor slabs and a patch parent's CF halo
+        self.nest_buffer = int(nest_buffer)
         self.problem = problem
         self.params = params
         self.device = parent_geo.device
-        self.geo_source = parent_geo.geo
+        self.geo_source = (root_geo_source if root_geo_source is not None
+                           else parent_geo.geo)
         self.ratio = tuple(int(r) for r in ratio)
         self.nt = max(self.ratio) if use_subcycling else 1
         self.K = int(num_patches)
@@ -228,9 +255,13 @@ class PatchCoupling:
                              if d not in self.span_dirs)
         H = ADVECT_GROW
         self.halo = H
+        ph_dir = tuple(self.parent_halo_axes[parent_grid.axis(d)]
+                       for d in range(ndim))
+        self.parent_valid_nx = tuple(parent_grid.nx[d] - 2 * ph_dir[d]
+                                     for d in range(ndim))
         self.interior_nx, self.ext_nx = patch_footprint(
             parent_grid.nx, parent_grid.periodic, self.ratio, patch_frac,
-            max_grid_size, H)
+            max_grid_size, H, parent_halo=ph_dir)
         dx_f = tuple(parent_grid.dx[d] / self.ratio[d] for d in range(ndim))
         # x0 is a placeholder: the patch's fields come from its parent
         self.ext_grid = Grid(
@@ -268,11 +299,14 @@ class PatchCoupling:
             s // self._axis_ratio(ax) for ax, s in enumerate(self.int_shape))
         self.origin_f: Optional[np.ndarray] = None
         self.weights: Optional[np.ndarray] = None
-        #: the parent patch of each slot: zeros at K > 1 (one base level),
-        #: kept for the checkpoint layout
+        #: the parent patch of each slot ((K,) ints, or (1,) for one patch
+        #: under a parent of several); zeros under a one-patch parent at
+        #: K > 1, None at K = 1 there
         self.parent_sel: Optional[np.ndarray] = None
         #: (dropped, tagged) parent cells of the last origin choice
         self.tag_coverage = (0, 0)
+        #: candidate boxes the last origin choice had no slot for
+        self._slot_overflow = 0
         #: consecutive origin choices that dropped tagged cells
         self._drop_streak = 0
 
@@ -424,6 +458,15 @@ class PatchCoupling:
                      in self.cf_dirs else 0
                      for ax in range(self.parent_grid.ndim))
 
+    def _parent_halo_f(self):
+        """The no-go margin (fine cells per array axis) at both ends of a
+        patch parent: its CF halo plus the nest buffer; zero under the
+        base level."""
+        return tuple(
+            (self.parent_halo_axes[ax]
+             + (self.nest_buffer if self.parent_halo_axes[ax] > 0 else 0))
+            * self._axis_ratio(ax) for ax in range(self.parent_grid.ndim))
+
     def _record_coverage(self, tags, origins, weights, halo_axes,
                          interior_axes):
         """Store the tag coverage of the chosen patches and the streak of
@@ -432,6 +475,7 @@ class PatchCoupling:
                                       self.parent_grid, self.ratio,
                                       interior_axes, halo_axes)
         self.tag_coverage = (dropped, total)
+        self._slot_overflow = 0
         self._drop_streak = self._drop_streak + 1 if dropped > 0 else 0
         if dropped > 0:
             warnings.warn(
@@ -443,9 +487,17 @@ class PatchCoupling:
                 stacklevel=3)
 
     def _masked_tags(self, s_par: NSState, tag_params: TagParams):
-        """Tags of the parent state (the base level has no CF halo of its
-        own to mask)."""
-        return compute_tags(s_par, self._parent_level, tag_params)
+        """Tags of a parent state with the parent's own CF halo cleared
+        (interpolated data, and no place for a donor slab)."""
+        tags = compute_tags(s_par, self._parent_level, tag_params)
+        for ax, ph in enumerate(self.parent_halo_axes):
+            if ph > 0:
+                sl = [slice(None)] * tags.ndim
+                sl[ax] = slice(0, ph)
+                tags[tuple(sl)] = False
+                sl[ax] = slice(tags.shape[ax] - ph, None)
+                tags[tuple(sl)] = False
+        return tags
 
     def choose_origin(self, s_par: NSState, tag_params: TagParams
                       ) -> np.ndarray:
@@ -455,7 +507,7 @@ class PatchCoupling:
         halo_axes = self._halo_axes()
         origin = patch_origin_from_tags(tags, self.parent_grid, self.ratio,
                                         self.int_shape, halo_axes,
-                                        lo_pad_f=(0,) * len(halo_axes))
+                                        lo_pad_f=self._parent_halo_f())
         if origin is None:
             self.tag_coverage = (0, 0)
             origin = self._centered_origin()
@@ -463,6 +515,14 @@ class PatchCoupling:
             self._record_coverage(tags, origin[None, :], None, halo_axes,
                                   self.int_shape)
         return np.asarray(origin, dtype=np.int64)
+
+    def _unplaced(self):
+        """(origins, weights) with nothing tagged: slot 0 centred, the
+        others its weight-0 duplicates."""
+        origins = np.tile(self._centered_origin(), (self.K, 1))
+        weights = np.zeros(self.K, np.float32)
+        weights[0] = 1.0
+        return origins, weights
 
     def choose_origins(self, s_par: NSState, tag_params: TagParams):
         """Tag the parent state and choose K patch origins and weights
@@ -472,36 +532,126 @@ class PatchCoupling:
         halo_axes = self._halo_axes()
         got = patch_origins_from_tags(tags, self.parent_grid, self.ratio,
                                       self.int_shape, halo_axes, self.K,
-                                      lo_pad_f=(0,) * len(halo_axes),
+                                      lo_pad_f=self._parent_halo_f(),
                                       fill_ratio=tag_params.fill_ratio,
                                       block_factor=tag_params.block_factor)
         if got is None:
-            origins = np.tile(self._centered_origin(), (self.K, 1))
-            weights = np.zeros(self.K, np.float32)
-            weights[0] = 1.0
             self.tag_coverage = (0, 0)
             self._drop_streak = 0
-            return origins, weights
+            return self._unplaced()
         self._record_coverage(tags, got[0], got[1], halo_axes,
                               self.int_shape)
         return got
 
+    def choose_origins_multi(self, parent_patches, parent_weights,
+                             tag_params: TagParams):
+        """Under a parent of several patches: tag every active parent
+        patch, cluster within each, and fill the K slots round-robin
+        across the parents, most tagged first, so that every tagged parent
+        gets a patch before any gets a second; warn when tagged cells are
+        dropped or boxes find no slot.  Returns (origins (K, ndim),
+        weights (K,), parent_sel (K,))."""
+        halo_axes = self._halo_axes()
+        per_parent = []     # (tag count, parent index, [origins])
+        dropped_tot = total_tot = 0
+        for p, s_pp in enumerate(parent_patches):
+            if parent_weights is not None \
+                    and float(parent_weights[p]) == 0.0:
+                continue
+            tags = self._masked_tags(s_pp, tag_params)
+            ntags = int(tags.sum())
+            total_tot += ntags
+            if ntags == 0:
+                continue
+            got = patch_origins_from_tags(
+                tags, self.parent_grid, self.ratio, self.int_shape,
+                halo_axes, self.K, lo_pad_f=self._parent_halo_f(),
+                fill_ratio=tag_params.fill_ratio,
+                block_factor=tag_params.block_factor)
+            if got is None:
+                continue
+            org_p, w_p = got
+            dropped, _ = tag_coverage(tags, org_p, w_p, self.parent_grid,
+                                      self.ratio, self.int_shape,
+                                      halo_axes)
+            dropped_tot += dropped
+            boxes = [np.asarray(org_p[k]) for k in range(self.K)
+                     if w_p[k] > 0.0]
+            if boxes:
+                per_parent.append((ntags, p, boxes))
+        per_parent.sort(key=lambda t: -t[0])
+        cands = []
+        rank = 0
+        while any(rank < len(b) for _, _, b in per_parent):
+            for _, p, boxes in per_parent:
+                if rank < len(boxes):
+                    cands.append((p, boxes[rank]))
+            rank += 1
+        self.tag_coverage = (dropped_tot, total_tot)
+        self._slot_overflow = max(0, len(cands) - self.K)
+        self._drop_streak = self._drop_streak + 1 if dropped_tot > 0 else 0
+        if dropped_tot > 0:
+            warnings.warn(
+                f"AMR regrid dropped {dropped_tot}/{total_tot} tagged "
+                f"cells across parent patches; raise amr.max_patches / "
+                f"amr.max_grid_size.", RuntimeWarning, stacklevel=2)
+        if not cands:
+            origins, weights = self._unplaced()
+            return origins, weights, np.zeros(self.K, np.int64)
+        if len(cands) > self.K:
+            warnings.warn(
+                f"AMR regrid found {len(cands)} boxes across parent "
+                f"patches but only {self.K} child slots; dropping "
+                f"{len(cands) - self.K} (raise amr.max_patches).",
+                RuntimeWarning, stacklevel=2)
+            cands = cands[:self.K]
+        origins = np.zeros((self.K, self.parent_grid.ndim), np.int64)
+        weights = np.zeros(self.K, np.float32)
+        psel = np.zeros(self.K, np.int64)
+        for k, (p, o) in enumerate(cands):
+            origins[k], weights[k], psel[k] = o, 1.0, p
+        for k in range(len(cands), self.K):     # inactive: slot 0's copy
+            origins[k], psel[k] = origins[0], psel[0]
+        return origins, weights, psel
+
+
+class _RestartPlacement(Exception):
+    """Raised by placement right-sizing when a coarser level's footprint
+    grew so that a finer level's tags could nest in it: the placement
+    starts again from the base."""
+
+
+def _host_ints(v) -> np.ndarray:
+    """Host int64 array of an index array (tensors read once)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.int64)
+
 
 class AMRHierarchy:
-    """Base level + one subcycled refined level of K patches.
+    """Base level + nested subcycled refined levels of K patches each.
 
-    The arguments are the JAX package's; those that select a feature
-    outside the port so far (more than one ratio, reflux, implicit
-    reflux, eta_lambda > 0, post-regrid smoothing) raise
-    NotImplementedError.  num_patches other than 1 pins K; the default
-    K = 1 doubles (1 -> 2 -> 4 ..., up to max_auto_patches) wherever a
-    placement or a regrid would drop tagged cells, and the footprint
-    widens once K is at its cap.  The sync projection's composite solve
-    always takes FAS tau and the elliptic reflux (the JAX defaults
-    sync_use_tau = sync_use_reflux = True), and the right-sizing is
-    always on (auto_escalate_patches = True); the JAX package's
-    grid_buffer_size (the nesting buffer) has nothing to act on with one
-    refined level and is not an argument."""
+    The arguments are the JAX package's: `ratios` has one (maybe
+    anisotropic) ratio per refined level (`ratio` alone builds one
+    refined level); those that select a feature outside the port so far
+    (reflux, implicit reflux, eta_lambda > 0, post-regrid smoothing) raise
+    NotImplementedError.  num_patches: an int K is the finest level's
+    budget (1, the default, lets right-sizing double it; any other value
+    pins it), a per-level sequence pins every level it names.
+    Right-sizing doubles an unpinned K (1 -> 2 -> 4 ..., up to
+    max_auto_patches) wherever a placement or a regrid would drop tagged
+    cells, then widens the footprint, and at placement widens the parent
+    level.  grid_buffer_size is the nest buffer in parent cells.  The sync
+    projection's composite solve always takes FAS tau and the elliptic
+    reflux (the JAX defaults sync_use_tau = sync_use_reflux = True), and
+    the right-sizing is always on (auto_escalate_patches = True).
+
+    The per-level arguments of advance, init_project and the rest keep
+    the JAX layout: fine_states, origins and weights are coarse-to-fine
+    sequences, each K-stacked at K > 1 (or, with one refined level, the
+    bare state, origins and weights), and parent_sels is a per-level
+    tuple, None where the parent has one patch (the `parent_sels`
+    property gives it)."""
 
     def __init__(self, geo0, problem: Problem, params: NSParams,
                  ratio=None, tag_params: TagParams = TagParams(),
@@ -515,14 +665,14 @@ class AMRHierarchy:
                  do_sync_projection: bool = True,
                  sync_projection_iters: int = 1,
                  sync_composite_iters: int = 2,
+                 grid_buffer_size: int = 0,
                  max_auto_patches: int = 8):
         if ratios is None:
             if ratio is None:
                 raise ValueError("give ratio or ratios")
             ratios = [ratio]
-        if len(ratios) != 1:
-            raise _slice11(f"{len(ratios)} refinement ratios (nested "
-                           "levels)")
+        if len(ratios) < 1:
+            raise ValueError("no refinement ratio")
         if reflux:
             raise _slice11(f"advective refluxing {tuple(reflux)}")
         if implicit_reflux:
@@ -531,13 +681,20 @@ class AMRHierarchy:
             raise _slice11("the VD correction (eta_lambda > 0)")
         if regrid_smoothing_coeff > 0.0:
             raise _slice11("post-regrid smoothing")
-        # an int K other than 1, or an explicit per-level list, pins K:
-        # right-sizing may then widen the footprint but never change K
+        nlev = len(ratios)
+        # an explicit per-level list pins every level it names; an int K
+        # is the finest level's, pinned unless it is 1 (right-sizing may
+        # still widen a pinned level's footprint, never change its K)
         if isinstance(num_patches, (list, tuple)):
-            K, pinned = int(num_patches[0]), True
+            per_K = [int(k) for k in num_patches]
+            pinned = [lev < len(per_K) for lev in range(nlev)]
+            per_K += [1] * (nlev - len(per_K))
         else:
-            K, pinned = int(num_patches), int(num_patches) != 1
-        self.ratios = [tuple(int(r) for r in ratios[0])]
+            per_K = [1] * nlev
+            per_K[-1] = int(num_patches)
+            pinned = [False] * nlev
+            pinned[-1] = int(num_patches) != 1
+        self.ratios = [tuple(int(r) for r in rr) for rr in ratios]
         self.level0 = NSLevel(geo0, problem, params)
         self.grid0: Grid = geo0.grid
         self.problem = problem
@@ -552,306 +709,489 @@ class AMRHierarchy:
         self.last_sync_info = None
         self._geo0 = geo0
         self._pinned_K = pinned
-        self._K = K
-        #: patch_frac, grown by right-sizing
-        self._frac = float(patch_frac)
+        self._per_level_K = per_K
+        self._per_level_K0 = list(per_K)
+        #: per-level patch_frac, grown by right-sizing (None: patch_frac)
+        self._frac_override = [None] * nlev
+        self._patch_frac = float(patch_frac)
         self._use_subcycling = bool(use_subcycling)
         self._max_grid_size = int(max_grid_size)
-        self._build_coupling()
+        self._grid_buffer_size = int(grid_buffer_size)
+        self.couplings = []
+        self._build_couplings(0)
 
-    def _build_coupling(self):
-        c = PatchCoupling(self._geo0, self.problem, self.params,
-                          self.ratios[0], use_subcycling=self._use_subcycling,
-                          max_grid_size=self._max_grid_size,
-                          patch_frac=self._frac, num_patches=self._K)
-        c._parent_level = self.level0
-        self.couplings = [c]
-        self.ext_nx = c.ext_nx
-        self.halo = c.halo
+    def _level_frac(self, lev: int) -> float:
+        f = self._frac_override[lev]
+        return self._patch_frac if f is None else f
 
-    def _widen(self) -> bool:
-        """Widen the footprint (patch_frac x 1.5, to 0.95) and rebuild the
-        coupling; False when it is at its widest already."""
-        if self._frac >= 0.95:
+    def _build_couplings(self, start_lev: int):
+        """(Re)build couplings[start_lev:] from the per-level K and
+        patch_frac; the deeper levels lose their placement."""
+        del self.couplings[start_lev:]
+        if start_lev == 0:
+            parent_geo, parent_level, parent_halo = (self._geo0, self.level0,
+                                                     None)
+        else:
+            cp = self.couplings[start_lev - 1]
+            parent_geo, parent_level = cp.level.geo, cp.level
+            parent_halo = cp._halo_axes()
+        for lev in range(start_lev, len(self.ratios)):
+            c = PatchCoupling(parent_geo, self.problem, self.params,
+                              self.ratios[lev],
+                              use_subcycling=self._use_subcycling,
+                              max_grid_size=self._max_grid_size,
+                              patch_frac=self._level_frac(lev),
+                              num_patches=self._per_level_K[lev],
+                              parent_halo_axes=parent_halo,
+                              nest_buffer=self._grid_buffer_size,
+                              root_geo_source=self._geo0.geo)
+            c._parent_level = parent_level
+            self.couplings.append(c)
+            parent_geo, parent_level = c.level.geo, c.level
+            parent_halo = c._halo_axes()
+        c0 = self.couplings[0]
+        self.ext_nx = c0.ext_nx
+        self.halo = c0.halo
+
+    def _widen(self, lev: int) -> bool:
+        """Widen level lev's footprint (patch_frac x 1.5, to 0.95) and
+        rebuild it and the levels below; False when it is at its widest
+        already."""
+        if self._level_frac(lev) >= 0.95:
             return False
-        self._frac = min(0.95, 1.5 * self._frac)
-        self._build_coupling()
+        self._frac_override[lev] = min(0.95, 1.5 * self._level_frac(lev))
+        self._build_couplings(lev)
         return True
 
-    def _can_double_K(self) -> bool:
-        return not self._pinned_K and self._K < self.max_auto_patches
+    def _can_double_K(self, lev: int) -> bool:
+        return (not self._pinned_K[lev]
+                and self.couplings[lev].K < self.max_auto_patches)
+
+    @property
+    def num_levels(self) -> int:
+        return 1 + len(self.couplings)
+
+    def levels(self):
+        return [self.level0] + [c.level for c in self.couplings]
 
     @property
     def multi_patch(self) -> bool:
         return any(c.K > 1 for c in self.couplings)
 
+    @property
+    def parent_sels(self):
+        """Per refined level, the parent patch of each slot (host int64
+        arrays) where the parent level has K > 1 patches, None elsewhere;
+        None when no such level exists."""
+        if not any(c.K > 1 for c in self.couplings[:-1]):
+            return None
+        out = []
+        for lev, c in enumerate(self.couplings):
+            parent_K = self.couplings[lev - 1].K if lev > 0 else 1
+            out.append(c.parent_sel.copy()
+                       if parent_K > 1 and c.parent_sel is not None
+                       else None)
+        return tuple(out)
+
     def attach_mesh(self, mesh):
         raise _slice11("attach_mesh (sharded hierarchy steps)")
 
-    # ------------------------------------------------------------- advance
-    def _check_extras(self, geos=None, parent_sels=None):
-        for name, v in (("geos", geos), ("parent_sels", parent_sels)):
-            if v is not None and any(x is not None for x in (
-                    v if isinstance(v, (list, tuple)) else [v])):
-                raise _slice11(f"{name} (mapped or nested levels)")
+    # ----------------------------------------------------------- arguments
+    @staticmethod
+    def _check_geos(geos):
+        if geos is not None and any(x is not None for x in (
+                geos if isinstance(geos, (list, tuple)) else [geos])):
+            raise _slice11("geos (mapped patches)")
+
+    def _forms(self, fine_states, origins, weights=None):
+        """(fine states, origins, weights or None, single) as per-level
+        lists from either call form: coarse-to-fine sequences, or with one
+        refined level the bare state, origins and weights."""
+        single = not isinstance(fine_states, (list, tuple))
+        if single:
+            fine_states, origins = [fine_states], [origins]
+            if weights is not None and not isinstance(weights,
+                                                      (list, tuple)):
+                weights = [weights]
+        if len(fine_states) != len(self.couplings):
+            raise ValueError(f"{len(fine_states)} refined-level states for "
+                             f"{len(self.couplings)} refined levels")
+        return (list(fine_states), list(origins),
+                None if weights is None else list(weights), single)
+
+    def _psel(self, lev: int, parent_sels):
+        """The parent patch of each slot of level lev: parent_sels[lev]
+        where the parent level has K > 1 patches and it is given, else
+        patch 0 (the JAX rule)."""
+        K = self.couplings[lev].K
+        if (lev == 0 or self.couplings[lev - 1].K == 1
+                or parent_sels is None or parent_sels[lev] is None):
+            return [0] * K
+        return [int(p) for p in _host_ints(parent_sels[lev]).reshape(-1)]
+
+    def _patch_args(self, origins, weights=None, parent_sels=None):
+        """Per refined level: (per-patch origins, per-patch weights, None
+        at K = 1, per-patch parent index)."""
+        return [(c.patch_origins(origins[lev]),
+                 c.patch_weights(None if weights is None else weights[lev]),
+                 self._psel(lev, parent_sels))
+                for lev, c in enumerate(self.couplings)]
 
     @staticmethod
-    def _forms(fine_states, origins, weights=None):
-        """(patch state, origins, weights, single) of either call form: a
-        bare state, or one-element sequences (nested levels raise)."""
-        w = weights[0] if isinstance(weights, (list, tuple)) else weights
-        if isinstance(fine_states, (list, tuple)):
-            if len(fine_states) != 1:
-                raise _slice11(f"{len(fine_states)} refined levels")
-            return fine_states[0], origins[0], w, False
-        return fine_states, origins, w, True
+    def _own_psel(c):
+        """The parent index of each slot of coupling c as placed."""
+        return ([0] * c.K if c.parent_sel is None
+                else [int(p) for p in c.parent_sel])
 
-    def _advance_patches(self, s_old: NSState, s_new: NSState,
-                         s_stack: NSState, org, dt: float, weights=None,
-                         mult: int = 1):
-        """The refined level's nt = c.nt * mult subcycles between the
-        base states at t (s_old) and t + dt (s_new): before each, every
-        patch's CF halo refreshed from the time-interpolated base state
-        and its projections' CF rings from the base potentials at the
-        substep's midpoint.  Returns (the averaged-down base state, the
-        level's state)."""
-        c = self.couplings[0]
-        nt = c.nt * int(mult)
+    # ------------------------------------------------------------- advance
+    def _advance_recursive(self, lev: int, pars_old, pars_new, fine_states,
+                           args, dt: float, nt_mults=None):
+        """Level lev's nt = c.nt * nt_mults[lev] substeps between its
+        parent patches' states at t (pars_old) and t + dt (pars_new),
+        lists with one entry per parent patch: before each, every patch's
+        CF halo refreshed from its parent's time-interpolated state and
+        its projections' CF rings from the parent potentials at the
+        substep's midpoint; the next level subcycles inside every
+        substep, between this level's halo-refreshed and advanced
+        states.  fine_states[lev] is updated in place.  Returns the parent
+        patches' states with each patch averaged down into its own."""
+        c = self.couplings[lev]
+        origs, ws, psel = args[lev]
+        nt = c.nt * (1 if nt_mults is None else int(nt_mults[lev]))
         dt_f = dt / nt
-        patches = c.unstack(s_stack)
-        origs = c.patch_origins(org)
-        ws = c.patch_weights(weights)
+        patches = c.unstack(fine_states[lev])
+        has_child = lev + 1 < len(self.couplings)
         for i in range(nt):
-            donor0 = time_interp(s_old, s_new, i / nt)
             mid = (i + 0.5) / nt
-            mac_mid = (1.0 - mid) * s_old.mac_phi + mid * s_new.mac_phi
-            cc_mid = (1.0 - mid) * s_old.cc_phi + mid * s_new.cc_phi
+            donors = {}
+            prev = list(patches)
+            for p in sorted(set(psel)):
+                so, sn = pars_old[p], pars_new[p]
+                donors[p] = (time_interp(so, sn, i / nt),
+                             (1.0 - mid) * so.mac_phi + mid * sn.mac_phi,
+                             (1.0 - mid) * so.cc_phi + mid * sn.cc_phi)
             for k, o in enumerate(origs):
+                donor0, mac_mid, cc_mid = donors[psel[k]]
                 s_f = c._overwrite_halo(
                     patches[k], c._interp_state_ext(donor0, o, nt=nt))
+                prev[k] = s_f
                 rings = {"mac": c._ring(mac_mid, o),
                          "cc": c._ring(cc_mid, o, 1.0 / nt)}
                 patches[k] = c.level.advance(s_f, dt_f, rings=rings)
-        s_par = s_new
+            if has_child:
+                patches = self._advance_recursive(
+                    lev + 1, prev, patches, fine_states, args, dt_f,
+                    nt_mults)
+        fine_states[lev] = c.stack(patches)
+        out = list(pars_new)
         for k, o in enumerate(origs):
-            s_par = c.average_down(s_par, patches[k], o, weight=ws[k])
-        return s_par, c.stack(patches)
+            out[psel[k]] = c.average_down(out[psel[k]], patches[k], o,
+                                          weight=ws[k])
+        return out
 
     def advance(self, s0: NSState, fine_states, origins, dt, geos=None,
                 weights=None, nt_mults=None, parent_sels=None):
         """One coarse step of length dt (a Python float): the base
-        advance, the subcycled patch advances (nt_mults: the dynamic
-        subcycling factor of the refined level), average-down and the
-        composite sync projection.  fine_states / origins / weights: the
-        refined level's state (K-stacked at K > 1), origins and weights,
-        bare or as one-element sequences (the return takes the same
-        form).  Returns (s0_new, fine_states_new)."""
-        self._check_extras(geos, parent_sels)
-        s_f, origin, w, single = self._forms(fine_states, origins, weights)
+        advance, the nested subcycled patch advances (nt_mults: each
+        refined level's dynamic-subcycling factor), average-down and the
+        composite sync projection.  fine_states / origins / weights: per
+        refined level (or the one level's, bare); parent_sels: per level
+        where the parent has K > 1 patches.  Returns (s0_new,
+        fine_states_new) in the form given."""
+        self._check_geos(geos)
+        fs, orgs, ws, single = self._forms(fine_states, origins, weights)
+        args = self._patch_args(orgs, ws, parent_sels)
         dt = float(dt)
-        mult = 1 if nt_mults is None else int(nt_mults[0])
         s0_new = self.level0.advance(s0, dt)
-        s0_new, s_f = self._advance_patches(s0, s0_new, s_f, origin, dt,
-                                            w, mult)
+        (s0_new,) = self._advance_recursive(0, [s0], [s0_new], fs, args, dt,
+                                            nt_mults)
         if self.params.is_incompressible and self.do_sync_projection:
             for _ in range(self.sync_projection_iters):
-                s0_new, s_f = self._sync_project(s0_new, s_f, origin, w)
-        return (s0_new, s_f) if single else (s0_new, (s_f,))
+                s0_new = self._sync_project(s0_new, fs, args)
+        return (s0_new, fs[0]) if single else (s0_new, tuple(fs))
 
     def init_project(self, s0: NSState, fine_states, origins, geos=None,
                      weights=None, parent_sels=None, iters: int = 1):
         """Composite initial projection(s) over the freshly placed
-        hierarchy.  Returns (s0, (refined level's state,))."""
-        self._check_extras(geos, parent_sels)
-        s_f, origin, w, _ = self._forms(fine_states, origins, weights)
+        hierarchy.  Returns (s0, refined levels' states as a tuple)."""
+        self._check_geos(geos)
+        fs, orgs, ws, _ = self._forms(fine_states, origins, weights)
+        args = self._patch_args(orgs, ws, parent_sels)
         for _ in range(max(1, int(iters))):
-            s0, s_f = self._sync_project(s0, s_f, origin, w)
-        return s0, (s_f,)
+            s0 = self._sync_project(s0, fs, args)
+        return s0, tuple(fs)
 
     def initialize_pressure(self, s0: NSState, fine_states, origins, dt,
                             geos=None, weights=None, parent_sels=None,
                             iters: int = 1):
-        """Converge the lagged pressures of both levels with dummy coarse
+        """Converge the lagged pressures of every level with dummy coarse
         steps that keep only the pressure fields."""
-        self._check_extras(geos, parent_sels)
-        s_f, origin, w, single = self._forms(fine_states, origins, weights)
+        self._check_geos(geos)
+        fs, orgs, ws, single = self._forms(fine_states, origins, weights)
         keep = lambda dst, src: dataclasses.replace(
             dst, pressure=src.pressure, mac_phi=src.mac_phi,
             cc_phi=src.cc_phi)
         for _ in range(max(1, int(iters))):
-            t0, tf = self.advance(s0, s_f, origin, dt, weights=w)
-            s0, s_f = keep(s0, t0), keep(s_f, tf)
-        return (s0, s_f) if single else (s0, (s_f,))
+            t0, tf = self.advance(s0, fs, orgs, dt, weights=ws,
+                                  parent_sels=parent_sels)
+            s0 = keep(s0, t0)
+            fs = [keep(f, t) for f, t in zip(fs, tf)]
+        return (s0, fs[0]) if single else (s0, tuple(fs))
 
-    def _sync_project(self, s0: NSState, s_f: NSState, origin,
-                      weights=None):
-        """One composite sync projection: ONE composite potential solve of
-        L[phi] = div(u) over both levels (the base rhs built from the
-        composite divergence: the base flux on each patch's CF interface
-        faces replaced by the averaged patch flux), each level's velocity
-        corrected by its own gradient of the composite potential (each
-        patch with the base potential's CF ring), and the corrected
-        patches averaged down.  Returns (s0, s_f)."""
+    def _sync_project(self, s0: NSState, fine_states: list, args):
+        """One composite sync projection over every level: ONE composite
+        potential solve of L[phi] = div(u) (each parent's rhs built from
+        the composite divergence: its flux on each child patch's CF
+        interface faces replaced by the averaged child flux, bottom-up),
+        each level's velocity corrected by its own gradient of the
+        composite potential (each patch with its parent's potential as
+        the CF ring), and the corrected patches averaged down bottom-up.
+        fine_states is updated in place; returns the base state."""
         from somar_tpu_torch.amr.composite import (AMRCompositeSolver,
                                                    CompositeParams)
         from somar_tpu_torch.amr.flux_register import PatchFluxRegister
-        c = self.couplings[0]
-        level0, lvl = self.level0, c.level
-        patches = c.unstack(s_f)
-        origs = c.patch_origins(origin)
-        ws = c.patch_weights(weights)
+        level0 = self.level0
         f0 = level0.projector.cc_fluxes(s0.vel, level0.vel_bcs_trace)
-        rhs0 = mac_divergence(f0, level0.geo)
-        fluxes = [lvl.projector.cc_fluxes(p.vel, lvl.vel_bcs_trace)
-                  for p in patches]
-        rhs1 = [mac_divergence(f, lvl.geo) for f in fluxes]
-        fr = PatchFluxRegister(c)
-        for k, o in enumerate(origs):
-            reg = fr.increment_fine(fr.zeros(), fluxes[k], 1.0)
-            reg = fr.increment_coarse(reg, f0, o)
-            rhs0 = fr.reflux(rhs0, reg, o, -(1.0 if ws[k] is None
-                                             else ws[k]), level0.geo)
+        rhss = [mac_divergence(f0, level0.geo)]
+        fluxs = [[f0]]
+        patches = []
+        for lev, c in enumerate(self.couplings):
+            lvl = c.level
+            patches.append(c.unstack(fine_states[lev]))
+            fl = [lvl.projector.cc_fluxes(p.vel, lvl.vel_bcs_trace)
+                  for p in patches[lev]]
+            fluxs.append(fl)
+            rhss.append([mac_divergence(f, lvl.geo) for f in fl])
+        for lev in range(len(self.couplings) - 1, -1, -1):
+            c = self.couplings[lev]
+            origs, ws, psel = args[lev]
+            par_geo = (level0 if lev == 0
+                       else self.couplings[lev - 1].level).geo
+            fr = PatchFluxRegister(c)
+            for k, o in enumerate(origs):
+                p = psel[k]
+                reg = fr.increment_fine(fr.zeros(), fluxs[lev + 1][k], 1.0)
+                reg = fr.increment_coarse(reg, fluxs[lev][p], o)
+                sign = -(1.0 if ws[k] is None else ws[k])
+                if lev == 0:
+                    rhss[0] = fr.reflux(rhss[0], reg, o, sign, par_geo)
+                else:
+                    rhss[lev][p] = fr.reflux(rhss[lev][p], reg, o, sign,
+                                             par_geo)
         solver = AMRCompositeSolver(
             self, CompositeParams(iters=self.sync_composite_iters,
                                   purpose="sync"))
-        (phi0, phi1), self.last_sync_info = solver.solve_patches(
-            [rhs0, rhs1], origs, ws)
+        phis, self.last_sync_info = solver.solve_patches(rhss, args)
         s0 = dataclasses.replace(
-            s0, vel=s0.vel - level0.projector.cc_correction(phi0))
-        for k, o in enumerate(origs):
-            patches[k] = dataclasses.replace(
-                patches[k], vel=patches[k].vel - lvl.projector.cc_correction(
-                    phi1[k], c._ring(phi0, o)))
-        for k, o in enumerate(origs):
-            s0 = c.average_down(s0, patches[k], o, weight=ws[k])
-        return s0, c.stack(patches)
+            s0, vel=s0.vel - level0.projector.cc_correction(phis[0]))
+        for lev, c in enumerate(self.couplings):
+            origs, _, psel = args[lev]
+            for k, o in enumerate(origs):
+                ph_par = phis[0] if lev == 0 else phis[lev][psel[k]]
+                p_k = patches[lev][k]
+                patches[lev][k] = dataclasses.replace(
+                    p_k, vel=p_k.vel - c.level.projector.cc_correction(
+                        phis[lev + 1][k], c._ring(ph_par, o)))
+        for lev in range(len(self.couplings) - 1, -1, -1):
+            c = self.couplings[lev]
+            origs, ws, psel = args[lev]
+            parents = [s0] if lev == 0 else patches[lev - 1]
+            for k, o in enumerate(origs):
+                parents[psel[k]] = c.average_down(
+                    parents[psel[k]], patches[lev][k], o, weight=ws[k])
+            if lev == 0:
+                s0 = parents[0]
+        for lev, c in enumerate(self.couplings):
+            fine_states[lev] = c.stack(patches[lev])
+        return s0
 
     def average_down(self, s0: NSState, s1: NSState, origin_f) -> NSState:
         return self.couplings[0].average_down(s0, s1, origin_f)
 
     # ----------------------------------------------------------- placement
-    def _global_origin(self, upto: int = 0, last_origin=None,
+    def _global_origin(self, upto: int, last_origin=None,
                        patch: int = 0) -> np.ndarray:
-        """A patch's origin in its level's global fine index space (with
-        one refined level: its own origin row)."""
-        if upto != 0:
-            raise _slice11("nested levels")
-        c = self.couplings[0]
+        """A patch's origin in its level's global fine index space: its
+        own origin (last_origin, else row `patch` of the level's) plus
+        its parent's global origin times the ratio, through the chain of
+        parent_sel."""
+        c = self.couplings[upto]
         if last_origin is not None:
-            return np.asarray(last_origin, dtype=np.int64)
-        if c.K > 1:
-            return np.asarray(c.origin_f[patch], dtype=np.int64)
-        return np.asarray(c.origin_f, dtype=np.int64)
+            o = np.asarray(last_origin, dtype=np.int64)
+        elif c.K > 1:
+            o = np.asarray(c.origin_f[patch], dtype=np.int64)
+        else:
+            o = np.asarray(c.origin_f, dtype=np.int64)
+        if upto == 0:
+            return o
+        p = int(c.parent_sel[patch]) if c.parent_sel is not None else 0
+        g_par = self._global_origin(upto - 1, patch=p)
+        r = np.array([c._axis_ratio(ax) for ax in range(self.grid0.ndim)],
+                     dtype=np.int64)
+        return g_par * r + o
 
-    def _choose(self, c, s_par):
-        """(origins, weights) of a fresh origin choice on coupling c
-        (weights None at K = 1)."""
+    def _choose(self, c, par_patches, par_w):
+        """(origins, weights, parent_sel) of a fresh origin choice on
+        coupling c over its parent's patches (weights None at K = 1,
+        parent_sel None under a one-patch parent at K = 1)."""
+        if len(par_patches) > 1:
+            return c.choose_origins_multi(par_patches, par_w,
+                                          self.tag_params)
         if c.K > 1:
-            return c.choose_origins(s_par, self.tag_params)
-        return c.choose_origin(s_par, self.tag_params), None
+            org, w = c.choose_origins(par_patches[0], self.tag_params)
+            return org, w, np.zeros(c.K, np.int64)
+        return c.choose_origin(par_patches[0], self.tag_params), None, None
 
-    def _right_sized_choice(self, s_par, grow):
-        """Probe an origin choice, grow the level (`grow()` True: it was
-        rebuilt or re-stacked) and re-probe until nothing is dropped or
-        nothing can grow; the warnings of the final probe are replayed.
-        Returns (coupling, origins, weights)."""
-        c = self.couplings[0]
+    def _right_sized_choice(self, lev: int, par_patches, par_w, grow):
+        """Probe an origin choice on level lev, grow it (`grow()` True: it
+        was rebuilt or re-stacked) and re-probe until nothing is dropped
+        or nothing can grow; the warnings of the final probe are
+        replayed.  Returns (coupling, (origins, weights, parent_sel))."""
+        c = self.couplings[lev]
         for _attempt in range(8):
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                org, w = self._choose(c, s_par)
+                got = self._choose(c, par_patches, par_w)
             if not grow():
                 for m in caught:
                     warnings.warn_explicit(m.message, m.category,
                                            m.filename, m.lineno)
                 break
-            c = self.couplings[0]
-        return c, org, w
+            c = self.couplings[lev]
+        return c, got
 
-    def _result(self, s_f, org, w):
-        """((state,), (origins,)) and, at K > 1, (weights,)."""
+    def _set_patches(self, lev: int, org, w, psel, multi_parent: bool):
+        c = self.couplings[lev]
+        if c.K > 1:
+            c.origin_f, c.weights = np.asarray(org, np.int64), w
+            c.parent_sel = np.asarray(psel, np.int64)
+        else:
+            c.origin_f = np.asarray(org[0] if multi_parent else org,
+                                    np.int64)
+            c.weights = None
+            c.parent_sel = (np.asarray(psel[:1], np.int64) if multi_parent
+                            else None)
+
+    def _result(self, states, origins, weights):
+        """(states, origins) tuples and, when a level has K > 1 patches,
+        (weights,) as well."""
         if self.multi_patch:
-            return (s_f,), (org.copy(),), (w.copy(),)
-        return (s_f,), (org.copy(),)
-
-    def _set_patches(self, org, w):
-        c = self.couplings[0]
-        c.origin_f, c.weights = org, w
-        c.parent_sel = np.zeros(c.K, np.int64) if c.K > 1 else None
+            return tuple(states), tuple(origins), tuple(weights)
+        return tuple(states), tuple(origins)
 
     def initial_patch_states(self, s0: NSState):
-        """Tag the base state, choose the patch origins (growing K, then
-        the footprint, until no tagged cell is dropped) and fill the
-        patches from the base (host work).  Returns ((state,), (origins,))
-        and, when the level has K > 1 patches, (weights,) as well; the
-        origins are host int arrays per array axis."""
-        c, _, _ = self._right_sized_choice(s0, self._grow_for_init_coverage)
-        org, w = self._choose(c, s0)
-        self._set_patches(org, w)
-        s_f = c.stack([c._interp_state_ext(s0, o)
-                       for o in c.patch_origins(org)])
-        return self._result(s_f, org, w)
+        """Tag, choose every level's patch origins and fill the patches
+        from their parents, coarse to fine (host work), growing K, then
+        the footprint, then the parent level, until no tagged cell is
+        dropped.  Returns (states, origins) tuples, one entry per refined
+        level, and (weights,) as well when a level has K > 1 patches;
+        the parent selections are on the couplings (`parent_sels`)."""
+        for _round in range(12):
+            try:
+                return self._place_initial_patches(s0, allow_restart=True)
+            except _RestartPlacement:
+                continue
+        return self._place_initial_patches(s0, allow_restart=False)
 
-    def _grow_for_init_coverage(self) -> bool:
-        """Placement right-sizing: when the probe dropped tagged cells,
-        double the patch budget K (unless pinned, up to
-        max_auto_patches), else widen the footprint (patch_frac x 1.5, to
-        0.95); True when the level was rebuilt (the caller re-probes)."""
-        if self.couplings[0].tag_coverage[0] <= 0:
+    def _place_initial_patches(self, s0: NSState, allow_restart: bool):
+        states, origins, weights = [], [], []
+        par_patches, par_w = [s0], None
+        for lev in range(len(self.couplings)):
+            c, _ = self._right_sized_choice(
+                lev, par_patches, par_w,
+                lambda: self._grow_for_init_coverage(lev, allow_restart))
+            org, w, psel = self._choose(c, par_patches, par_w)
+            self._set_patches(lev, org, w, psel, len(par_patches) > 1)
+            patches = [c._interp_state_ext(par_patches[p], o)
+                       for o, p in zip(c.patch_origins(c.origin_f),
+                                       self._own_psel(c))]
+            states.append(c.stack(patches))
+            origins.append(c.origin_f.copy())
+            weights.append(None if c.weights is None else c.weights.copy())
+            par_patches, par_w = patches, c.weights
+        return self._result(states, origins, weights)
+
+    def _grow_for_init_coverage(self, lev: int,
+                                allow_parent_growth: bool = True) -> bool:
+        """Placement right-sizing of level lev: when the probe dropped
+        tagged cells (or found boxes with no slot), double its patch
+        budget K (unless pinned, up to max_auto_patches), else widen its
+        footprint (patch_frac x 1.5, to 0.95), else widen its parent's
+        and start the placement again (raises _RestartPlacement).  True
+        when the level was rebuilt (the caller re-probes)."""
+        c = self.couplings[lev]
+        if c.tag_coverage[0] <= 0 and c._slot_overflow <= 0:
             return False
-        if self._can_double_K():
-            self._K = min(2 * self._K, self.max_auto_patches)
-            self._build_coupling()
-            return True
-        return self._widen()
+        if self._can_double_K(lev):
+            self._per_level_K[lev] = min(2 * c.K, self.max_auto_patches)
+        elif self._level_frac(lev) < 0.95:
+            self._frac_override[lev] = min(0.95, 1.5 * self._level_frac(lev))
+        elif (allow_parent_growth and lev > 0
+              and self._level_frac(lev - 1) < 0.95):
+            self._frac_override[lev - 1] = min(
+                0.95, 1.5 * self._level_frac(lev - 1))
+            # size this level afresh under the grown parent
+            self._per_level_K[lev] = self._per_level_K0[lev]
+            self._frac_override[lev] = None
+            self._build_couplings(lev - 1)
+            raise _RestartPlacement()
+        else:
+            return False
+        self._build_couplings(lev)
+        return True
 
     # -------------------------------------------------------------- regrid
-    def _escalate_K(self, fine_states: list):
-        """Double the refined level's patch budget K in place, padding the
-        state stack, origins, weights and parent selections with weight-0
+    def _escalate_K(self, lev: int, fine_states: list):
+        """Double level lev's patch budget K in place, padding its state
+        stack, origins, weights and parent selections with weight-0
         duplicates of slot 0.  Returns (old_k, new_k)."""
-        c = self.couplings[0]
+        c = self.couplings[lev]
         old_k = c.K
         new_k = min(2 * old_k, self.max_auto_patches)
         pad = new_k - old_k
-        parts = c.unstack(fine_states[0])
-        fine_states[0] = tree_stack(parts + [parts[0]] * pad)
+        parts = c.unstack(fine_states[lev])
+        fine_states[lev] = tree_stack(parts + [parts[0]] * pad)
         if c.origin_f is not None:
             origs = c.patch_origins(c.origin_f)
             c.origin_f = np.stack(origs + [origs[0]] * pad)
         w = np.zeros(new_k, np.float32)
         w[:old_k] = 1.0 if c.weights is None else np.asarray(c.weights)
         c.weights = w
-        c.parent_sel = np.zeros(new_k, np.int64)
-        c.K = self._K = new_k
+        ps = self._own_psel(c)
+        c.parent_sel = np.asarray(ps + [ps[0]] * pad, np.int64)
+        c.K = self._per_level_K[lev] = new_k
         c._drop_streak = 0
         return old_k, new_k
 
     def _maybe_escalate_patches(self, fine_states: list, from_level: int):
-        """Double K before this regrid re-chooses origins when the level's
-        regrids dropped tagged cells twice in a row."""
-        c = self.couplings[0]
-        if from_level > 0 or c._drop_streak < 2 or not self._can_double_K():
-            return
-        old_k, new_k = self._escalate_K(fine_states)
-        warnings.warn(
-            f"AMR level 1 dropped tagged cells on consecutive regrids; "
-            f"patch budget escalated {old_k} -> {new_k} (cap "
-            f"max_auto_patches={self.max_auto_patches}).", RuntimeWarning,
-            stacklevel=3)
+        """Double K before this regrid re-chooses origins on each level
+        (from from_level down) whose regrids dropped tagged cells twice
+        in a row."""
+        for lev, c in enumerate(self.couplings):
+            if lev < from_level or c._drop_streak < 2 \
+                    or not self._can_double_K(lev):
+                continue
+            old_k, new_k = self._escalate_K(lev, fine_states)
+            warnings.warn(
+                f"AMR level {lev + 1} dropped tagged cells on consecutive "
+                f"regrids; patch budget escalated {old_k} -> {new_k} (cap "
+                f"max_auto_patches={self.max_auto_patches}).",
+                RuntimeWarning, stacklevel=3)
 
-    def _grow_for_regrid_coverage(self, fine_states: list) -> bool:
-        """Runtime right-sizing: when the probe dropped tagged cells,
-        double K (unless pinned; the live state stack is padded with
-        weight-0 slots), else widen the footprint (a rebuilt coupling;
-        the overlap copy bridges the shapes).  True when the level
-        changed (the caller re-probes)."""
-        if self.couplings[0].tag_coverage[0] <= 0:
+    def _grow_for_regrid_coverage(self, lev: int, fine_states: list) -> bool:
+        """Runtime right-sizing of level lev: when the probe dropped
+        tagged cells (or found boxes with no slot), double K (unless
+        pinned; the live state stack is padded with weight-0 slots), else
+        widen the footprint (rebuilt couplings; the overlap copy bridges
+        the shapes).  True when the level changed (the caller
+        re-probes)."""
+        c = self.couplings[lev]
+        if c.tag_coverage[0] <= 0 and c._slot_overflow <= 0:
             return False
-        if self._can_double_K():
-            self._escalate_K(fine_states)
+        if self._can_double_K(lev):
+            self._escalate_K(lev, fine_states)
             return True
-        return self._widen()
+        return self._widen(lev)
 
     def _overlap_copy(self, s_new: NSState, old: NSState, new_g, old_g,
                       new_shape, old_shape) -> NSState:
@@ -882,100 +1222,142 @@ class AMRHierarchy:
                           for f in dataclasses.fields(s_new)})
 
     def regrid(self, s0: NSState, fine_states, dt=None, from_level: int = 0):
-        """Re-tag the base state and move the patches (host work): new
-        origins with runtime right-sizing (K doubled, then the footprint
-        widened, until no tagged cell is dropped), each new patch filled
-        from the base and overwritten by the old patches' data where they
-        overlap in global fine index space (weight-0 old slots skipped).
-        from_level > 0 keeps the refined level as it is.  dt is the JAX
-        signature's (it feeds post-regrid smoothing, which raises).
-        Returns (fine_states, origins) in the form given, plus (weights,)
-        when the level has K > 1 patches."""
+        """Re-tag and move the patches of level from_level + 1 and below,
+        coarse to fine (host work): new origins with runtime right-sizing
+        (K doubled, then the footprint widened, until no tagged cell is
+        dropped), each new patch filled from its parent patch and
+        overwritten by the level's old active patches where they overlap
+        in the level's global fine index space.  Shallower levels keep
+        their patches and data.  dt is the JAX signature's (it feeds
+        post-regrid smoothing, which raises).  Returns (fine_states,
+        origins) in the form given, plus (weights,) when a level has
+        K > 1 patches."""
         single = not isinstance(fine_states, (list, tuple))
-        fine_states = [fine_states] if single else list(fine_states)
-        if len(fine_states) != 1:
-            raise _slice11(f"{len(fine_states)} refined levels")
-        self._maybe_escalate_patches(fine_states, from_level)
-        c = self.couplings[0]
-        if from_level > 0:
-            s_new, org, w = fine_states[0], np.asarray(c.origin_f), c.weights
-        else:
-            # the old active patches: (state, global origin), in slot order
-            old_shape = c.ext_grid.shape
-            old = [] if c.origin_f is None else [
-                (p, self._global_origin(0, last_origin=o))
-                for p, o, wk in zip(c.unstack(fine_states[0]),
-                                    c.patch_origins(c.origin_f),
-                                    c.patch_weights(c.weights))
+        fs = [fine_states] if single else list(fine_states)
+        if len(fs) != len(self.couplings):
+            raise ValueError(f"{len(fs)} refined-level states for "
+                             f"{len(self.couplings)} refined levels")
+        self._maybe_escalate_patches(fs, from_level)
+        # every level's old active patches (state, global origin) and
+        # shape, before any level moves
+        olds = []
+        for lev, c in enumerate(self.couplings):
+            old = [] if lev < from_level or c.origin_f is None else [
+                (p, self._global_origin(lev, last_origin=o, patch=k))
+                for k, (p, o, wk) in enumerate(zip(
+                    c.unstack(fs[lev]), c.patch_origins(c.origin_f),
+                    c.patch_weights(c.weights)))
                 if wk is None or wk != 0.0]
-            c, org, w = self._right_sized_choice(
-                s0, lambda: self._grow_for_regrid_coverage(fine_states))
-            self._set_patches(org, w)
+            olds.append((old, c.ext_grid.shape))
+        states, origins, weights = [], [], []
+        par_patches, par_w = [s0], None
+        for lev in range(len(self.couplings)):
+            c = self.couplings[lev]
+            if lev < from_level:
+                states.append(fs[lev])
+                origins.append(np.asarray(c.origin_f).copy())
+                weights.append(None if c.weights is None
+                               else c.weights.copy())
+                par_patches, par_w = c.unstack(fs[lev]), c.weights
+                continue
+            c, (org, w, psel) = self._right_sized_choice(
+                lev, par_patches, par_w,
+                lambda: self._grow_for_regrid_coverage(lev, fs))
+            self._set_patches(lev, org, w, psel, len(par_patches) > 1)
+            old, old_shape = olds[lev]
             patches = []
-            for o in c.patch_origins(org):
-                s_k = c._interp_state_ext(s0, o)
-                new_g = self._global_origin(0, last_origin=o)
-                for p, old_g in old:
-                    s_k = self._overlap_copy(s_k, p, new_g, old_g,
+            for k, (o, p) in enumerate(zip(c.patch_origins(c.origin_f),
+                                           self._own_psel(c))):
+                s_k = c._interp_state_ext(par_patches[p], o)
+                new_g = self._global_origin(lev, last_origin=o, patch=k)
+                for q, old_g in old:
+                    s_k = self._overlap_copy(s_k, q, new_g, old_g,
                                              c.ext_grid.shape, old_shape)
                 patches.append(s_k)
-            s_new = c.stack(patches)
+            states.append(c.stack(patches))
+            origins.append(c.origin_f.copy())
+            weights.append(None if c.weights is None else c.weights.copy())
+            par_patches, par_w = patches, c.weights
         if single:
-            return s_new, org.copy()
-        return self._result(s_new, org, w)
+            return states[0], origins[0]
+        return self._result(states, origins, weights)
 
-    def restore(self, fine_states, origins, weights=None):
-        """Set the refined level to a checkpoint's patches: K from the
-        origins' shape, the footprint grown (as right-sizing grows it)
-        until its extended shape is the patches', then the origins and
-        weights.  Returns (fine_states, origins, weights) as tuples,
-        weights (None,) at K = 1."""
-        s_f, org, w, _ = self._forms(fine_states, origins, weights)
-        org = np.asarray(org, dtype=np.int64)
-        self._K = org.shape[0] if org.ndim == 2 else 1
-        shape = tuple(s_f.lam.shape[-self.grid0.ndim:])
-        self._build_coupling()
-        while tuple(self.couplings[0].ext_grid.shape) != shape:
-            if not self._widen():
-                raise ValueError(f"no footprint of this hierarchy has the "
-                                 f"checkpoint's patch shape {shape}")
-        c = self.couplings[0]
-        if c.K > 1:
-            w = (np.ones(c.K, np.float32) if w is None
-                 else np.asarray(host_weights(w), np.float32))
-        else:
-            w = None
-        self._set_patches(org.copy(), w)
-        return (s_f,), (org.copy(),), (None if w is None else w.copy(),)
+    def restore(self, fine_states, origins, weights=None, parent_sels=None):
+        """Set the refined levels to a checkpoint's patches, coarse to
+        fine: each level's K from its origins' shape, its footprint grown
+        (as right-sizing grows it) until its extended shape is the
+        patches', then the origins, weights and parent selections.
+        Returns (fine_states, origins, weights) as tuples, weights None
+        at K = 1."""
+        fs, orgs, ws, _ = self._forms(fine_states, origins, weights)
+        ndim = self.grid0.ndim
+        orgs = [np.asarray(o, dtype=np.int64) for o in orgs]
+        for lev in range(len(self.couplings)):
+            self._per_level_K[lev] = (orgs[lev].shape[0]
+                                      if orgs[lev].ndim == 2 else 1)
+            self._frac_override[lev] = None
+            self._build_couplings(lev)
+            shape = tuple(fs[lev].lam.shape[-ndim:])
+            while tuple(self.couplings[lev].ext_grid.shape) != shape:
+                if not self._widen(lev):
+                    raise ValueError(
+                        f"no footprint of this hierarchy has the "
+                        f"checkpoint's level-{lev + 1} patch shape {shape}")
+        out_w = []
+        for lev, c in enumerate(self.couplings):
+            w = None if ws is None else ws[lev]
+            if c.K > 1:
+                w = (np.ones(c.K, np.float32) if w is None
+                     else np.asarray(host_weights(w), np.float32))
+            else:
+                w = None
+            ps = (None if parent_sels is None or parent_sels[lev] is None
+                  else _host_ints(parent_sels[lev]).reshape(-1))
+            if ps is None and c.K > 1:
+                ps = np.zeros(c.K, np.int64)
+            c.origin_f, c.weights, c.parent_sel = orgs[lev].copy(), w, ps
+            out_w.append(None if w is None else w.copy())
+        return tuple(fs), tuple(o.copy() for o in orgs), tuple(out_w)
 
     # ------------------------------------------------------------------ dt
-    def _patch_dts(self, fine_states):
-        """One unread dt tensor per patch of the refined level."""
-        s_f, _, _, _ = self._forms(fine_states, [None])
-        c = self.couplings[0]
-        return [c.level.compute_dt_tensor(p) for p in c.unstack(s_f)]
+    def _level_dt_tensors(self, fine_states):
+        """Per refined level, one unread dt tensor per patch."""
+        fs = (list(fine_states) if isinstance(fine_states, (list, tuple))
+              else [fine_states])
+        return [[c.level.compute_dt_tensor(p) for p in c.unstack(s)]
+                for c, s in zip(self.couplings, fs)]
 
     def compute_dt(self, s0: NSState, fine_states, geos=None) -> float:
-        """Coarse dt limited so that the subcycled patches stay in their
+        """Coarse dt limited so that every subcycled level stays in its
         CFL (a Python float; one host read)."""
-        self._check_extras(geos)
-        base, patch = self.level_dts(s0, fine_states)
-        return min(base, self.couplings[0].nt * patch)
+        self._check_geos(geos)
+        dts = self.level_dts(s0, fine_states)
+        dt, factor = dts[0], 1
+        for c, d in zip(self.couplings, dts[1:]):
+            factor *= c.nt
+            dt = min(dt, factor * d)
+        return dt
 
     def level_dts(self, s0: NSState, fine_states, geos=None):
         """Per-level CFL-limited dts (base first), not scaled by the
-        subcycle count: the refined level's is the least over its
-        patches.  Python floats, in one host read."""
-        self._check_extras(geos)
+        subcycle counts: a refined level's is the least over its patches.
+        Python floats, in one host read."""
+        self._check_geos(geos)
+        per = self._level_dt_tensors(fine_states)
         vals = read_scalars(self.level0.compute_dt_tensor(s0),
-                            *self._patch_dts(fine_states))
-        return (vals[0], min(vals[1:]))
+                            *[t for ts in per for t in ts])
+        out, i = [vals[0]], 1
+        for ts in per:
+            out.append(min(vals[i:i + len(ts)]))
+            i += len(ts)
+        return tuple(out)
 
     def subcycle_multipliers(self, dt: float, level_dts,
                              tolerance_factor: float = 1.1):
         """Dynamic subcycling: per coupling, double the substep count
         until the level's dt is within tolerance_factor of its
-        CFL-limited dt (at most 16x).  Returns a tuple of multipliers."""
+        CFL-limited dt (at most 16x); a deeper level sees the dt its
+        parent's doubling left.  Returns a tuple of multipliers."""
         mults = []
         dt_run = float(dt)
         for lev, c in enumerate(self.couplings):

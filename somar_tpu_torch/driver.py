@@ -14,18 +14,20 @@
     peak host RSS and peak device memory), the timer report and the final
     checkpoint.
 
-With amr.maxlevel = 1 the run is a two-level AMR hierarchy
-(`entry.amr_hierarchy_from_context`): the patches are placed on the
-initialized base state, projected with the composite initial projection
-and their pressures initialized by dummy coarse steps; each coarse step
-takes the dynamic-subcycling factor of `subcycle_multipliers` (unless
-amr.fixed_dt is set or subcycling is off), regrids every
-amr.regrid_intervals steps (right-sizing K and the footprint; the
-previous step's snapshot is re-pointed at the new patches when their
-shapes changed), takes the next dt from `level_dts`, and writes the
-refined level into plot files and checkpoints; a restart restores the
-patches, their K, footprint, origins and weights exactly.  Cell updates
-count nt K prod(ext) per refined level beside the base cells.
+With amr.maxlevel >= 1 the run is an AMR hierarchy of that many nested
+refined levels (`entry.amr_hierarchy_from_context`): the patches are
+placed on the initialized base state, projected with the composite
+initial projection and their pressures initialized by dummy coarse steps;
+each coarse step takes the dynamic-subcycling factors of
+`subcycle_multipliers` (unless amr.fixed_dt is set or subcycling is off),
+regrids where a level's amr.regrid_intervals is due (the shallowest level
+due sets from_level; right-sizing K and the footprint; the previous
+step's snapshot is re-pointed at the new patches when any level's shapes
+changed), takes the next dt from `level_dts`, and writes every refined
+level into plot files and checkpoints; a restart restores the patches,
+their K, footprints, origins, weights and parent selections exactly.
+Cell updates count (product of the substep counts down to the level) K
+prod(ext) per refined level beside the base cells.
 
 With the same parameters the single-level loop takes the same steps as
 `entry.run`: the same dt arithmetic in Python floats, so both give the
@@ -33,11 +35,9 @@ same state.  Besides compute_dt's one read a step, the loop reads the
 state's time on the host (its end condition, the step line, the plot
 period), each read counted by `solvers/host_reads.read_scalars`.
 
-Limits: `amr.maxlevel >= 2` raises (nested levels are slice 11 of the
-port's AMR, ROADMAP A.5); the run stays on the one device it is given
-(the JAX driver's multi-device decomposition is `parallel/`, ROADMAP
-A.7); there is no CPU fallback: without device="cpu" the run is on the
-GPU or raises.
+Limits: the run stays on the one device it is given (the JAX driver's
+multi-device decomposition is `parallel/`, ROADMAP A.7); there is no CPU
+fallback: without device="cpu" the run is on the GPU or raises.
 """
 
 from __future__ import annotations
@@ -63,6 +63,17 @@ from somar_tpu_torch.utils.debug import assert_finite_host
 from somar_tpu_torch.utils.printing import pout, set_pout_dir
 from somar_tpu_torch.utils.scheduler import Scheduler
 from somar_tpu_torch.utils.timers import timer
+
+
+def level_log(h):
+    """Per refined level of hierarchy h: its K, origins, weights, parent
+    selections, ext and tag coverage as placed (host values)."""
+    return [dict(K=c.K, origins=np.asarray(c.origin_f).tolist(),
+                 weights=None if c.weights is None else c.weights.tolist(),
+                 parent_sel=(None if c.parent_sel is None
+                             else c.parent_sel.tolist()),
+                 ext=list(c.ext_nx), tag_coverage=tuple(c.tag_coverage))
+            for c in h.couplings]
 
 
 def _time(state) -> float:
@@ -100,10 +111,12 @@ class RunDriver:
         #: cells updated and seconds of the last run's loop (files included)
         self.cell_updates = 0
         self.elapsed = 0.0
-        #: AMR: the refined level's state, origins and weights (tuples, one
-        #: entry per refined level) at the end of the last run; the dt and
-        #: the dynamic-subcycling factors of each step; per regrid a dict
-        #: of step, seconds, K, origins, weights and tag coverage
+        #: AMR: the refined levels' states, origins and weights (tuples,
+        #: one entry per refined level) at the end of the last run; the dt
+        #: and the dynamic-subcycling factors of each step; per regrid a
+        #: dict of step, seconds, from_level and `levels`, per refined
+        #: level its K, origins, weights, parent selections, ext and tag
+        #: coverage (`level_log`)
         self.fine_state = self.origin = self.weights = None
         self.dts, self.nt_mults, self.regrids = [], [], []
         set_pout_dir(out_dir)
@@ -118,7 +131,7 @@ class RunDriver:
     def _initial(self):
         """(state, step, dt, fine) to start from: restored from
         amr.restart_file, or the projected initial state with its
-        converged lagged pressure; fine is the refined level's (state,
+        converged lagged pressure; fine is the refined levels' (states,
         origins, weights) tuples, or None without AMR."""
         ctx, level, p = self.ctx, self.level, self.ctx.ns
         h = self.hierarchy
@@ -130,8 +143,9 @@ class RunDriver:
                 return got + (None,)
             if len(got) <= 3:
                 raise ValueError("the checkpoint holds no refined level")
-            state, step, dt, fines, origins, weights, _ = got
-            return state, step, dt, h.restore(fines, origins, weights)
+            state, step, dt, fines, origins, weights, psels = got
+            return state, step, dt, h.restore(fines, origins, weights,
+                                              psels)
         state = level.post_initialize(
             level.initial_state(),
             num_proj=max(1, ctx.amr.init_projection_iters))
@@ -144,13 +158,14 @@ class RunDriver:
             return state, 0, dt, None
         got = h.initial_patch_states(state)
         fine, origin = got[0], got[1]
-        weights = got[2] if len(got) > 2 else (None,)
+        weights = got[2] if len(got) > 2 else (None,) * len(fine)
         state, fine = h.init_project(
-            state, fine, origin, weights=weights,
+            state, fine, origin, weights=weights, parent_sels=h.parent_sels,
             iters=max(1, ctx.amr.init_projection_iters))
         if ctx.amr.init_pressure_iters > 0:
             state, fine = h.initialize_pressure(
                 state, fine, origin, dt, weights=weights,
+                parent_sels=h.parent_sels,
                 iters=max(1, ctx.amr.init_pressure_iters))
         return state, 0, dt, (tuple(fine), tuple(origin), tuple(weights))
 
@@ -166,7 +181,8 @@ class RunDriver:
                 pout(f"  subcycling: factors {nt_mults}")
         self.nt_mults.append(nt_mults)
         state, fine = h.advance(state, fine, origin, dt, weights=weights,
-                                nt_mults=nt_mults)
+                                nt_mults=nt_mults,
+                                parent_sels=h.parent_sels)
         updates, factor = 0, 1
         for c, m in zip(h.couplings, nt_mults):
             factor *= c.nt * m
@@ -187,14 +203,11 @@ class RunDriver:
         with timer("regrid"):
             got = h.regrid(state, fine, dt=dt, from_level=min(due))
         fine, origin = tuple(got[0]), tuple(got[1])
-        weights = tuple(got[2]) if len(got) > 2 else (None,)
+        weights = tuple(got[2]) if len(got) > 2 else (None,) * len(fine)
         self._sync()
-        c = h.couplings[0]
         self.regrids.append(dict(
-            step=step, seconds=time.perf_counter() - t0, K=c.K,
-            origins=np.asarray(c.origin_f).tolist(),
-            weights=None if c.weights is None else c.weights.tolist(),
-            ext=list(c.ext_nx), tag_coverage=tuple(c.tag_coverage)))
+            step=step, seconds=time.perf_counter() - t0,
+            from_level=min(due), levels=level_log(h)))
         shapes = lambda fs: [tuple(getattr(f, n.name).shape) for f in fs
                              for n in dataclasses.fields(f)]
         if shapes(fine_old) != shapes(fine):

@@ -11,6 +11,10 @@ geometries between the two packages.
     h = build_amr_hierarchy(64, 96, 64, ratio=(4, 1, 1), device="cuda")
     s0, fine, origin = place_amr(h)        # (.., weights) when K > 1
     s0, fine = run_amr(h, s0, fine, origin, dt=0.01, nsteps=10)
+    h = build_amr_hierarchy(64, None, 16, ratios=[(4, 1), (4, 2)])
+    s0, fines, origins = place_amr(h)      # per refined level
+    s0, fines = run_amr(h, s0, fines, origins, 0.01, 10,
+                        parent_sels=h.parent_sels)
 """
 
 from __future__ import annotations
@@ -140,43 +144,46 @@ AMR_TAG_PARAMS = TagParams(buoyancy_tag_tol=0.2, tags_grow=1)
 
 
 def build_amr_hierarchy(nx: int, ny: int | None, nz: int,
-                        ratio=(4, 1, 1), *, device="cuda",
+                        ratio=(4, 1, 1), *, ratios=None, device="cuda",
                         dtype=torch.float32, pressure_solver: str = "auto",
                         mg: MGParams = MGParams(),
                         tag_params: TagParams = AMR_TAG_PARAMS,
                         **hierarchy_kw) -> AMRHierarchy:
     """The lock exchange of `build_level` (15 x [2 x] 2, nu = kappa = 1e-4,
     explicit gravity, CN, CFL 0.9; 2D (x, z) with ny = None) as the base of
-    a two-level hierarchy with one refined patch at `ratio` (per logical
-    direction), tagged by `tag_params` (buoyancy_tag_tol 0.2, tags_grow 1).
-    hierarchy_kw go to AMRHierarchy (e.g. do_sync_projection,
+    a hierarchy with one refined level at `ratio` (per logical
+    direction), or one per entry of `ratios` (nested levels), tagged by
+    `tag_params` (buoyancy_tag_tol 0.2, tags_grow 1).  hierarchy_kw go to
+    AMRHierarchy (e.g. num_patches, grid_buffer_size, do_sync_projection,
     sync_composite_iters).  Runs on the GPU unless `device` says
     otherwise, and raises without one."""
     level, grid = build_level(nx, nz, ny, device=device, dtype=dtype,
                               pressure_solver=pressure_solver, mg=mg)
-    if len(ratio) != grid.ndim:
-        raise ValueError(f"ratio {ratio} for a {grid.ndim}D base level")
+    ratios = [tuple(ratio)] if ratios is None else [tuple(r) for r in ratios]
+    for r in ratios:
+        if len(r) != grid.ndim:
+            raise ValueError(f"ratio {r} for a {grid.ndim}D base level")
     return AMRHierarchy(level.geo, level.problem, level.params,
-                        ratio=tuple(ratio), tag_params=tag_params,
+                        ratios=ratios, tag_params=tag_params,
                         **hierarchy_kw)
 
 
 def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
-    """The two-level hierarchy of a deck: the amr.* keys that the JAX
-    driver reads (somar_tpu/driver.py:40-85) for amr.maxlevel = 1,
-    amr.max_patches (1, the default, lets right-sizing double K; any
-    other value pins it) included.  The regrid cadence
-    amr.regrid_intervals (default 10) is set on the hierarchy as
-    `regrid_intervals`, one per refined level.  Keys that select what
-    the port does not have yet (amr.maxlevel > 1, refluxing, post-regrid
+    """The hierarchy of a deck at amr.maxlevel >= 1: the amr.* keys that
+    the JAX driver reads (somar_tpu/driver.py:40-85), the per-level
+    ratios amr.refratio_lev<l>, amr.max_patches (an int is the finest
+    level's K: 1, the default, lets right-sizing double it, any other
+    value pins it; a per-level list pins each level it names) and
+    amr.grid_buffer_size (the nest buffer, default 1) included.  The
+    regrid cadence amr.regrid_intervals (default 10) is set on the
+    hierarchy as `regrid_intervals`, one per refined level.  Keys that
+    select what the port does not have yet (refluxing, post-regrid
     smoothing, the VD correction) raise NotImplementedError naming slice
     11."""
     a = ctx.amr
-    if a.max_level != 1:
-        raise (NotImplementedError(f"amr.maxlevel = {a.max_level} is "
-                                   f"{SLICE11}") if a.max_level > 1 else
-               ValueError("amr.maxlevel = 0 has no refined level: use "
-                          "RunDriver"))
+    if a.max_level < 1:
+        raise ValueError("amr.maxlevel = 0 has no refined level: use "
+                         "RunDriver")
     if a.advective_momentum_reflux or a.advective_scalar_reflux \
             or a.advective_lambda_reflux or a.implicit_scalar_reflux \
             or a.implicit_momentum_reflux:
@@ -196,9 +203,11 @@ def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
         tags_grow=a.tags_grow, fill_ratio=a.fill_ratio,
         block_factor=a.block_factor, vert_extrude=a.vert_extrude_tags)
     h = AMRHierarchy(
-        geo, ctx.new_problem(), ctx.ns, ratios=list(a.ref_ratios[:1]),
-        tag_params=tags, num_patches=a.max_patches,
-        use_subcycling=a.use_subcycling, max_grid_size=a.max_grid_size,
+        geo, ctx.new_problem(), ctx.ns,
+        ratios=list(a.ref_ratios[:a.max_level]), tag_params=tags,
+        num_patches=a.max_patches, use_subcycling=a.use_subcycling,
+        max_grid_size=a.max_grid_size,
+        grid_buffer_size=a.grid_buffer_size,
         do_sync_projection=(a.do_sync_projection
                             and a.apply_sync_correction),
         sync_projection_iters=a.sync_projection_iters,
@@ -215,14 +224,20 @@ def place_amr(h: AMRHierarchy, s0: Optional[NSState] = None,
     post-initialized (unless s0 is given), the patches placed once from
     its tags and filled, then one composite initial projection.  Returns
     (s0, refined level's state, origins), and the weights as a fourth
-    item when the level has K > 1 patches."""
+    item when the level has K > 1 patches; with nested levels the
+    per-level tuples (states, origins[, weights]) in their place, and the
+    parent selections in `h.parent_sels`."""
     if s0 is None:
         s0 = h.level0.post_initialize(h.level0.initial_state())
     got = h.initial_patch_states(s0)
-    (fine,), (origin,) = got[:2]
-    weights = got[2][0] if len(got) > 2 else None
+    fine, origin = got[:2]
+    weights = got[2] if len(got) > 2 else None
     if init_projection:
-        s0, (fine,) = h.init_project(s0, fine, origin, weights=weights)
+        s0, fine = h.init_project(s0, fine, origin, weights=weights,
+                                  parent_sels=h.parent_sels)
+    if len(h.couplings) == 1:
+        fine, origin = fine[0], origin[0]
+        weights = None if weights is None else weights[0]
     return (s0, fine, origin) if weights is None else \
         (s0, fine, origin, weights)
 
@@ -230,12 +245,15 @@ def place_amr(h: AMRHierarchy, s0: Optional[NSState] = None,
 def run_amr(h: AMRHierarchy, s0: NSState, fine: NSState, origin, dt: float,
             nsteps: int,
             on_step: Optional[Callable[[int, NSState, NSState], None]] = None,
-            weights=None):
+            weights=None, parent_sels=None):
     """`nsteps` coarse steps of length dt at fixed patch origins (the JAX
-    package's AMR bench path).  on_step(i, s0, fine) is called after step
-    i.  Returns (s0, fine)."""
+    package's AMR bench path); fine, origin and weights in either form of
+    `AMRHierarchy.advance`, parent_sels per refined level (nested levels
+    under parents of K > 1 patches).  on_step(i, s0, fine) is called after
+    step i.  Returns (s0, fine)."""
     for i in range(nsteps):
-        s0, fine = h.advance(s0, fine, origin, dt, weights=weights)
+        s0, fine = h.advance(s0, fine, origin, dt, weights=weights,
+                             parent_sels=parent_sels)
         if on_step is not None:
             on_step(i, s0, fine)
     return s0, fine

@@ -21,15 +21,15 @@ pressure and macPressure, plus a Chombo-layout view of the same state in
 the same file (`<name>:datatype=0` LevelData datasets).  Plot files are
 Chombo-format (VisIt-readable): `write_chombo_plotfile`.
 
-AMR: with a hierarchy's refined level (fine_state, its grid, origins and,
-at K > 1, weights and parent selections), the file holds group
-`level_1` as well, with the patch_origin / patch_weights / parent_sel
-attributes and the datasets of level_0, a leading patch axis on each
-when the level has K > 1 patches (attribute num_patches), and the
-Chombo views carry the fine level's boxes, one per active patch
-interior in the fine level's global index space.  A resume restores the
-patches, origins and weights exactly.  Nested levels (more than one
-refined level) are slice 11 of the port's AMR (ROADMAP A.5).
+AMR: with a hierarchy's refined levels (fine_state, their grids, origins
+and, where they apply, weights and parent selections, one entry per
+refined level), the file holds groups `level_1..level_N` as well, with
+the patch_origin / patch_weights / parent_sel attributes and the
+datasets of level_0, a leading patch axis on each when the level has
+K > 1 patches (attribute num_patches), and the Chombo views carry each
+refined level's boxes, one per active patch interior in that level's
+global index space.  A resume restores the patches, origins, weights and
+parent selections exactly.
 """
 
 from __future__ import annotations
@@ -49,16 +49,11 @@ def _host(t) -> np.ndarray:
 
 
 def _levels(values):
-    """A coarse-to-fine sequence of a per-level argument (a bare value is
-    the one refined level's); more than one refined level raises."""
+    """A coarse-to-fine list of a per-level argument (a bare value is the
+    one refined level's)."""
     if values is None:
         return None
-    out = list(values) if isinstance(values, (list, tuple)) else [values]
-    if len(out) > 1:
-        raise NotImplementedError(
-            f"{len(out)} refined levels: nested-level checkpoints are slice "
-            "11 of the port's AMR (ROADMAP A.5)")
-    return out
+    return list(values) if isinstance(values, (list, tuple)) else [values]
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +136,10 @@ def checkpoint_tree(state, level, step: int, dt: float,
                     origin=None, weights=None, parent_sels=None,
                     old_fine=None, hierarchy=None) -> dict:
     """The content of a checkpoint of one level's state, or of a
-    hierarchy's with fine_state (the refined level's state), fine_grid
-    (its extended patch grid), origin, weights and parent_sels, each
-    bare or as a one-element sequence, for exact resume."""
+    hierarchy's with fine_state (the refined levels' states), fine_grid
+    (their extended patch grids), origin, weights and parent_sels, each
+    a coarse-to-fine sequence (or bare with one refined level), for exact
+    resume."""
     grid = level.grid
     fines = _levels(fine_state) or []
     nf = len(fines)
@@ -171,8 +167,8 @@ def write_checkpoint(path: str, state, level, step: int, dt: float,
                      fine_state=None, fine_grid=None, origin=None,
                      weights=None, parent_sels=None, old_state=None,
                      old_fine=None, hierarchy=None, cfl: float = 0.0):
-    """Save one level's state, or a two-level hierarchy's, for exact
-    resume (the JAX signature)."""
+    """Save one level's state, or a hierarchy's, for exact resume (the
+    JAX signature)."""
     write_tree(path, checkpoint_tree(
         state, level, step, dt, extra, old_state, cfl, fine_state,
         fine_grid, origin, weights, parent_sels, old_fine, hierarchy))
@@ -228,7 +224,8 @@ def _chombo_checkpoint_view(tree, state, level, step, dt, cfl, old_state,
             if c.K == 1:
                 patch_ids = [None]
             dx = c.ext_grid.dx
-            rr = [1] * ndim
+            rr = (list(hierarchy.couplings[ilev].ratio[:ndim])
+                  if ilev < len(hierarchy.couplings) else [1] * ndim)
             lev_dt /= c.nt
             t = float(_host(st.time).ravel()[0])
         ga = g["attrs"]
@@ -302,10 +299,10 @@ def _state_from_group(g, grid, time: float, nscal: int, kw) -> "NSState":
 
 def state_from_tree(tree: dict, level, fine_grid=None):
     """(state, step, dt) from a checkpoint tree, on the level's device in
-    its dtype.  With fine_grid (the refined level's extended grid) and a
+    its dtype.  With fine_grid (the refined levels' extended grids) and a
     level_1 group in the tree: (state, step, dt, fine_state, origin) for
-    a bare fine_grid, (state, step, dt, (fine_state,), (origin,),
-    (weights,), (parent_sel,)) for a one-element sequence."""
+    a bare fine_grid, (state, step, dt, fine_states, origins, weights,
+    parent_sels) tuples, one entry per refined level, for a sequence."""
     grid = level.grid
     kw = dict(dtype=level.params.dtype, device=level.device)
     a = tree["attrs"]
@@ -339,7 +336,7 @@ def state_from_tree(tree: dict, level, fine_grid=None):
 
 def read_checkpoint(path: str, level, fine_grid=None):
     """Restore (state, step, dt) from a checkpoint, and the refined
-    level's patches, origins, weights and parent selections when
+    levels' patches, origins, weights and parent selections when
     fine_grid is given (state_from_tree)."""
     return state_from_tree(read_tree(path), level, fine_grid)
 
@@ -548,8 +545,10 @@ def chombo_plotfile_tree(state, level, step: int, plot_cfg=None,
     """The content of a Chombo-format plot file: root header with the
     component names, then per level ref_ratio, vec_dx, dx, dt, time,
     prob_domain, boxes and `data:datatype=0`.  With a hierarchy and its
-    refined level's state (bare or a one-element sequence), level_1 holds
-    one box per active patch interior, at the level's dt (dt / nt)."""
+    refined levels' states (a coarse-to-fine sequence, or bare with one
+    refined level), level_l holds one box per active patch interior of
+    refined level l in its global index space, at the level's dt (dt over
+    the product of the subcycle counts above it)."""
     grid = level.grid
     ndim = grid.ndim
     fields0 = _plot_fields(state, level, plot_cfg)
@@ -562,15 +561,19 @@ def chombo_plotfile_tree(state, level, step: int, plot_cfg=None,
     fs = _levels(fine_states) if hierarchy is not None else None
     if fs:
         from somar_tpu_torch.amr.hierarchy import tree_index
-        c = hierarchy.couplings[0]
-        dom = nx * np.asarray(c.ratio[:ndim], np.int64)
-        boxes, ids = _fine_level_boxes(hierarchy, 0, c, dom)
-        per_box = [_plot_fields(fs[0] if c.K == 1 else
-                                tree_index(fs[0], k), c.level, plot_cfg)
-                   for k in ids]
-        levels[0] = levels[0][:4] + (list(c.ratio[:ndim]), float(dt))
-        levels.append((per_box, boxes, c.ext_grid.dx, dom, [1] * ndim,
-                       float(dt) / c.nt))
+        dom, lev_dt = nx, float(dt)
+        for lev, c in enumerate(hierarchy.couplings):
+            dom = dom * np.asarray(c.ratio[:ndim], np.int64)
+            lev_dt /= c.nt
+            boxes, ids = _fine_level_boxes(hierarchy, lev, c, dom)
+            per_box = [_plot_fields(fs[lev] if c.K == 1 else
+                                    tree_index(fs[lev], k), c.level,
+                                    plot_cfg)
+                       for k in ids]
+            levels[-1] = levels[-1][:4] + (list(c.ratio[:ndim]),
+                                           levels[-1][5])
+            levels.append((per_box, boxes, c.ext_grid.dx, dom, [1] * ndim,
+                           lev_dt))
     root = {"max_level": np.int32(len(levels) - 1),
             "num_levels": np.int32(len(levels)),
             "iteration": np.int32(step),
@@ -606,7 +609,7 @@ def chombo_plotfile_tree(state, level, step: int, plot_cfg=None,
 def write_chombo_plotfile(path: str, state, level, step: int, plot_cfg=None,
                           hierarchy=None, fine_states=None, dt: float = 0.0):
     """Write a Chombo-format plot file (the JAX signature): one level, or
-    with hierarchy and fine_states the refined level's patch interiors
+    with hierarchy and fine_states every refined level's patch interiors
     too."""
     write_tree(path, chombo_plotfile_tree(state, level, step, plot_cfg, dt,
                                           hierarchy, fine_states))

@@ -1,10 +1,11 @@
-"""Volume-weighted sums and norms on mapped grids, by level and over a
-two-level hierarchy (PyTorch port of the parts of `somar_tpu.ops.norms`
-that the AMR path uses).
+"""Volume-weighted sums and norms on mapped grids, by level and over an
+AMR hierarchy (PyTorch port of the parts of `somar_tpu.ops.norms` that
+the AMR path uses).
 
 The physical-volume integral of a CC field is sum_c f_c J_c dV_xi; a
 hierarchy sum takes each level's cells that no finer patch covers (a level
-of K > 1 patches each active patch's, times its weight).  Sums
+of K > 1 patches each active patch's, times its weight; a patch's cells
+are masked by the child patches nested in it, its own children).  Sums
 accumulate in float32, or in float64 for float64 fields (the JAX package
 under x64).  As there, the field is rounded to float32, and |f|^p taken
 in float32, before it is weighted.
@@ -103,7 +104,7 @@ def _composite(h, fields, origins, kind: str, p: int = 2):
             parts = ([(fields[lev][k], w) for k, w in
                       enumerate(c.patch_weights(c.weights))]
                      if c.K > 1 else [(fields[lev], None)])
-        for field, w in parts:
+        for k, (field, w) in enumerate(parts):
             if w == 0.0:
                 continue
             device = field.device
@@ -112,10 +113,12 @@ def _composite(h, fields, origins, kind: str, p: int = 2):
                                                device=device))
             if lev < len(h.couplings):
                 cf = h.couplings[lev]
-                for o in cf.patch_origins(origins[lev]):
-                    mask = mask & _uncovered_mask(
-                        grid, cf.covered_origin_c(o), cf.covered_shape_c,
-                        device)
+                for o, q in zip(cf.patch_origins(origins[lev]),
+                                h._own_psel(cf)):
+                    if q == k:
+                        mask = mask & _uncovered_mask(
+                            grid, cf.covered_origin_c(o),
+                            cf.covered_shape_c, device)
             if kind == "sum":
                 v = mapped_sum(field, geo, mask=mask)
             elif p == 0:

@@ -365,14 +365,26 @@ def test_amr_hierarchy_from_context_matches_jax_driver(tmp_path):
     th2 = entry.amr_hierarchy_from_context(
         TContext.from_parmparse(TPP.from_string(deck2)), device="cpu")
     assert th2.couplings[0].K == jh2.couplings[0].K == 2
-    assert [th2._pinned_K] == jh2._pinned_K == [True]
+    assert th2._pinned_K == jh2._pinned_K == [True]
     assert th2.regrid_intervals == [3]
     _, (jo2,), (jw2,) = jh2.initial_patch_states(js)
     _, (to2,), (tw2,) = th2.initial_patch_states(ts)
     np.testing.assert_array_equal(to2, np.asarray(jo2))
     np.testing.assert_array_equal(tw2, np.asarray(jw2))
-    for extra in ("amr.maxlevel = 2\namr.refratio_lev1 = 2 1\n",
-                  "amr.advective_scalar_reflux = 1\n",
+    # amr.maxlevel = 2 builds the nested hierarchy of the JAX driver
+    deck3 = AMR_DECK.replace("amr.maxlevel = 1", "amr.maxlevel = 2") \
+        + "amr.refratio_lev1 = 2 1\namr.regrid_intervals = 4 2\n" \
+        + "amr.grid_buffer_size = 2\n"
+    jh3 = JDriver(JContext.from_parmparse(JPP.from_string(deck3)),
+                  out_dir=str(tmp_path)).hierarchy
+    th3 = entry.amr_hierarchy_from_context(
+        TContext.from_parmparse(TPP.from_string(deck3)), device="cpu")
+    assert th3.ratios == jh3.ratios == [(4, 1), (2, 1)]
+    assert th3.regrid_intervals == [4, 2]
+    for jc, tc in zip(jh3.couplings, th3.couplings):
+        assert (tc.ext_nx, tc.nt, tc.nest_buffer, tc.parent_halo_axes) == (
+            jc.ext_nx, jc.nt, jc.nest_buffer, jc.parent_halo_axes)
+    for extra in ("amr.advective_scalar_reflux = 1\n",
                   "amr.smooth_after_regrid = 1\n"
                   "amr.postRegrid_smoothing_coeff = 1.0\n",
                   "projection.applyVDCorrection = 1\n"
@@ -608,20 +620,24 @@ def test_aux_fields_stand_in_for_the_derived_ones():
 
 # ------------------------------------------------------------- slice 10
 def test_slice10_features_raise(pair):
-    """What slice 10 ported runs (K pinned by num_patches, regrid,
-    dynamic subcycling, weights at K = 1); nested levels, refluxing, the
-    VD correction, post-regrid smoothing and sharded steps raise naming
-    slice 11."""
+    """What slices 10 and 11a ported runs (K pinned by num_patches,
+    regrid, dynamic subcycling, weights at K = 1, nested levels);
+    refluxing, the VD correction, post-regrid smoothing, mapped patches
+    and sharded steps raise naming slice 11."""
     jh, th = pair
     level = th.level0
     kw = dict(ratio=(4, 1))
     from somar_tpu_torch.amr.hierarchy import AMRHierarchy
-    for k, pinned in ((2, True), ((1, 1), True), (1, False)):
+    for k, pinned in ((2, [True]), ((1, 1), [True]), (1, [False])):
         h = AMRHierarchy(level.geo, level.problem, level.params,
                          num_patches=k, **kw)
         assert h.couplings[0].K == (k if isinstance(k, int) else k[0])
         assert h._pinned_K == pinned
-    for bad in (dict(ratios=[(4, 1), (2, 1)]), dict(reflux=("vel",), **kw),
+    h3 = AMRHierarchy(level.geo, level.problem, level.params,
+                      ratios=[(4, 1), (2, 1)], num_patches=(1, 2))
+    assert [c.K for c in h3.couplings] == [1, 2]
+    assert h3._pinned_K == [True, True] and h3.num_levels == 3
+    for bad in (dict(reflux=("vel",), **kw),
                 dict(implicit_reflux=True, **kw),
                 dict(eta_lambda=0.9, **kw),
                 dict(regrid_smoothing_coeff=1.0, **kw)):
@@ -634,9 +650,18 @@ def test_slice10_features_raise(pair):
     b0, bf = th.advance(s0, fine, origin, 0.01, weights=[np.ones(1)])
     for x in (af, bf):
         np.testing.assert_allclose(float(x.time), float(fine.time) + 0.01)
+    # the nested hierarchy places, steps and regrids
+    s3 = h3.level0.post_initialize(h3.level0.initial_state())
+    f3, o3, w3 = h3.initial_patch_states(s3)
+    a3, g3 = h3.advance(s3, f3, o3, 0.01, weights=w3,
+                        parent_sels=h3.parent_sels)
+    assert len(g3) == 2 and g3[1].vel.shape[0] == 2
+    assert all(bool(torch.isfinite(g.vel).all()) for g in g3)
+    r3 = h3.regrid(a3, g3, from_level=1)
+    assert torch.equal(r3[0][0].vel, g3[0].vel)
+    with pytest.raises(ValueError, match="refined levels"):
+        th.advance(s0, (fine, fine), (origin, origin), 0.01)
     for call in (lambda: th.attach_mesh(None),
-                 lambda: th.advance(s0, (fine, fine), (origin, origin),
-                                    0.01),
                  lambda: th.advance(s0, fine, origin, 0.01,
                                     geos=[{"geo": None}])):
         with pytest.raises(NotImplementedError, match="slice 11"):

@@ -281,8 +281,9 @@ def test_restart_equals_uninterrupted_run(tmp_path):
 def test_amr_is_refused():
     """RunDriver at amr.maxlevel = 1 builds a two-level hierarchy (on the
     GPU unless told otherwise) and its checkpoints carry the refined level
-    (slice 10 ported them); nested levels (amr.maxlevel = 2) and
-    nested-level checkpoints raise naming slice 11."""
+    (slice 10 ported them); at amr.maxlevel = 2 it builds the nested
+    hierarchy and its checkpoints carry both refined levels (slice 11a);
+    what stays in slice 11 (refluxing) raises naming it."""
     deck = AMR_CFG
     ctx = TContext.from_parmparse(TPP.from_string(deck))
     drv = TDriver(ctx, device="cpu")
@@ -293,8 +294,12 @@ def test_amr_is_refused():
             TDriver(ctx)
     ctx2 = TContext.from_parmparse(TPP.from_string(
         deck + "amr.maxlevel = 2\namr.refratio_lev1 = 2 1\n"))
+    drv2 = TDriver(ctx2, device="cpu")
+    assert drv2.hierarchy.num_levels == 3
+    ctx3 = TContext.from_parmparse(TPP.from_string(
+        deck + "amr.advective_momentum_reflux = 1\n"))
     with pytest.raises(NotImplementedError, match="slice 11"):
-        TDriver(ctx2, device="cpu")
+        TDriver(ctx3, device="cpu")
     h = drv.hierarchy
     s0, fine, origin = entry.place_amr(h)
     c = h.couplings[0]
@@ -306,9 +311,18 @@ def test_amr_is_refused():
         tree["level_1"]["attrs"]["patch_origin"], origin)
     got = tck.state_from_tree(tree, h.level0, fine_grid=c.ext_grid)
     assert torch.equal(got[3].vel, fine.vel)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tck.checkpoint_tree(s0, h.level0, 0, 0.1, fine_state=[fine, fine],
-                            fine_grid=[c.ext_grid] * 2, origin=[origin] * 2)
+    h2 = drv2.hierarchy
+    s2 = h2.level0.post_initialize(h2.level0.initial_state())
+    fines2, origins2 = h2.initial_patch_states(s2)[:2]
+    tree2 = tck.checkpoint_tree(
+        s2, h2.level0, 0, 0.1, fine_state=fines2,
+        fine_grid=[c2.ext_grid for c2 in h2.couplings], origin=origins2,
+        hierarchy=h2)
+    assert tree2["attrs"]["num_levels"] == 3
+    got2 = tck.state_from_tree(tree2, h2.level0,
+                               fine_grid=[c2.ext_grid for c2 in h2.couplings])
+    for a, b in zip(got2[3], fines2):
+        assert torch.equal(a.vel, b.vel)
 
 
 def test_cli_runs_a_2d_deck(tmp_path, monkeypatch):
