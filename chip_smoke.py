@@ -158,7 +158,7 @@ non-zero:
      the factor 2 on R0_SUBCYCLED's first step, and on the card every
      kernel of the 2D AMR path launched;
  24. R1: main path 1 as an AMR deck (R1_DECK: base 128^3, ratio (4,1,1),
-     regrids every 5 steps, CFL-limited dt, files every 10, 40 coarse
+     regrids every 5 steps, CFL-limited dt, files every 10, 20 coarse
      steps) through RunDriver: ms per coarse step (plain and regrid steps
      apart), seconds per regrid, K, origins and tag coverage at placement
      and after each regrid, launches and host reads per coarse step,
@@ -193,11 +193,29 @@ non-zero:
      ext, origins, parent selections and tag coverage at placement and
      after each regrid;
  29. N2: K1-K4 at the padded shapes of the level-2 patches N1 reached and
-     K5-K8 on their solver hierarchies against their twins.
+     K5-K8 on their solver hierarchies against their twins;
+ 30. M0: mapped decks (each patch slot on the map's metric at its own
+     position) through RunDriver on the card and, in a worker process at
+     the same time, on the CPU: M0_LEDGE (tests/test_amr.py:236-249's
+     Ledge hierarchy, 48x16, ratio (2,2)), M0_NESTED (the same at
+     amr.maxlevel = 2, ratios (4,1) and (4,2)) and M0_TWO_FRONTS (the
+     TwistedMap two fronts at K = 2), 6 coarse steps each: R0's gates
+     (the average-down weighted by each slot's J), each slot's J range,
+     and the two fronts' slots on metrics of their own;
+ 31. M1: a 2D lock exchange on the Ledge map (M1_DECK: D1's physics, base
+     1024x128, ratio (4,1), the patch footprint reckoned first, regrids
+     every 5 steps, 10 coarse steps, files at step 10): R1's prints and
+     gates, per regrid the seconds spent rebuilding slots, and every
+     kernel of the mapped path launched (mapped_path);
+ 32. M2: R1's deck on the Ledge map extruded in y (M2_DECK, 5 coarse
+     steps): the same;
+ 33. M3: K1-K4 at M1's and M2's padded patch shapes, K7/K8 on every
+     slot's own projection and diffusive hierarchies (M1, M2, and the two
+     slots of M0_TWO_FRONTS) against their twins.
 The line before the last is a JSON object describing each kernel, with
-launches_r0 / launches_r1 / launches_r2 / launches_n0 / launches_n1 and
-the per-coarse-step counts of R1, R2 and N1; the last line is {"ok": true,
-"device": {...}}.
+launches_r0 / launches_r1 / launches_r2 / launches_n0 / launches_n1 /
+launches_m0 / launches_m1 / launches_m2 and the per-coarse-step counts of
+R1, R2, N1, M1 and M2; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1005,32 +1023,38 @@ def stencil_timing(torch, sgk, device):
     gen = torch.Generator(device=device).manual_seed(31)
     for label, (nx, per, kind, bcs, dtname) in STENCIL_TIMING.items():
         op = stencil_level(nx, per, kind, device, dtname, bcs)
-        plan = op._stencil_plan
-        phi, rhs = (torch.randn(plan.shape, generator=gen, device=device)
-                    for _ in range(2))
-        times = {}
-        for name, cu_name, kern, plain in (
-                ("stencil_gsrb_sweeps", K7_NAMES,
-                 lambda: sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, 1),
-                 lambda: sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.0,
-                                                       1.0, 1)),
-                ("stencil_helm_residual", ("stencil_helm_residual_kernel",),
-                 lambda: sgk.stencil_helm_residual(plan, phi, rhs, 0.0, 1.0),
-                 lambda: sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.0,
-                                                         1.0))):
-            times[name] = (median_ms(torch, kern), median_ms(torch, plain),
-                           device_ms(torch, kern, cu_name))
-            ncells = phi.numel()
-            bound, by = bound_ms(name, ncells, K=plan.K)
-            say(f"timing {name:21s} {label:22s} K={plan.K} "
-                f"kernel={times[name][0]:.4f} ms "
-                f"plain={times[name][1]:.4f} ms "
-                f"kernel device time={times[name][2]:.4f} ms "
-                f"bound={bound:.4f} ms ({by})")
-        out[label] = (phi.numel(), plan.K, times)
-        del op, plan, phi, rhs
+        out[label] = plan_timing(torch, sgk, op._stencil_plan, label, gen)
+        del op
         torch.cuda.empty_cache()
     return out
+
+
+def plan_timing(torch, sgk, plan, label, gen):
+    """(ncells, K, {kernel: (ms, plain_ms, device_ms)}) of K7 per sweep
+    (iters=1) and K8 per call on a probed plan's own weights, each line
+    printed with its bound."""
+    device = plan.Wn.device
+    phi, rhs = (torch.randn(plan.shape, generator=gen, device=device,
+                            dtype=plan.Wn.dtype) for _ in range(2))
+    times = {}
+    for name, cu_name, kern, plain in (
+            ("stencil_gsrb_sweeps", K7_NAMES,
+             lambda: sgk.stencil_gsrb_sweeps(plan, phi, rhs, 0.0, 1.0, 1),
+             lambda: sgk.stencil_gsrb_sweeps_plain(plan, phi, rhs, 0.0,
+                                                   1.0, 1)),
+            ("stencil_helm_residual", ("stencil_helm_residual_kernel",),
+             lambda: sgk.stencil_helm_residual(plan, phi, rhs, 0.0, 1.0),
+             lambda: sgk.stencil_helm_residual_plain(plan, phi, rhs, 0.0,
+                                                     1.0))):
+        times[name] = (median_ms(torch, kern), median_ms(torch, plain),
+                       device_ms(torch, kern, cu_name))
+        bound, by = bound_ms(name, phi.numel(), K=plan.K)
+        say(f"timing {name:21s} {label:22s} K={plan.K} "
+            f"kernel={times[name][0]:.4f} ms "
+            f"plain={times[name][1]:.4f} ms "
+            f"kernel device time={times[name][2]:.4f} ms "
+            f"bound={bound:.4f} ms ({by})")
+    return phi.numel(), plan.K, times
 
 
 # --------------------------------------------------------------------------
@@ -2490,22 +2514,37 @@ def amr_card_vs_cpu(torch, entry, counters, device):
 
 
 def solver_level_twins(torch, gk, sgk, lvl, tag, worst):
-    """K5-K6 on every multigrid level of `lvl`'s pressure hierarchy (the
-    patch's CF sides take boundary factor 1; its top level is the
-    operator of the composite residual) and K7-K8 on every stencil-plan
-    level of its diffusive solve (on the patch: CF in x, EXTRAP(1) walls)
-    against their twins on the card: K5, K6, K7 bitwise, K8 within
-    PARITY_RTOL.  Returns the plan-less levels of each hierarchy."""
+    """K5-K6 on every multigrid level of `lvl`'s pressure hierarchy with a
+    uniform plan (the patch's CF sides take boundary factor 1; its top
+    level is the operator of the composite residual), K7-K8 on its levels
+    with a probed plan (a mapped level's: its projector's own hierarchy)
+    and on every stencil-plan level of its diffusive solve (on the patch:
+    CF in x, EXTRAP(1) walls) against their twins on the card: K5, K6, K7
+    bitwise, K8 within PARITY_RTOL.  Returns the plan-less levels of each
+    hierarchy."""
     from somar_tpu_torch.ops import rb_sweeps as rb
     from somar_tpu_torch.solvers.multigrid import LevelMultigrid
     gen = torch.Generator(device=lvl.geo.device).manual_seed(99)
-    pressure = LevelMultigrid(lvl.geo, lvl.projector.phi_bcs,
-                              lvl.projector._mg_params)
+    # a mapped level's own projection hierarchy (its probed K7/K8 plans);
+    # on a uniform one the K5/K6 hierarchy of its pressure BCs
+    pressure = (lvl.projector.mg if not lvl.geo.is_uniform else
+                LevelMultigrid(lvl.geo, lvl.projector.phi_bcs,
+                               lvl.projector._mg_params))
     plain = {"pressure": [], "diffusive": []}
     for op in pressure.ops:
         plan = op._fused_plan
         if plan is None:
-            plain["pressure"].append(tuple(op.grid.shape))
+            splan = op._stencil_plan
+            if splan is None:
+                plain["pressure"].append(tuple(op.grid.shape))
+                continue
+            phi, rhs = (torch.randn(splan.shape, generator=gen,
+                                    device=lvl.geo.device,
+                                    dtype=splan.Wn.dtype)
+                        for _ in range(2))
+            stencil_parity_case(torch, sgk, f"A {tag} pressure "
+                                f"{splan.shape}", splan, phi, rhs,
+                                [("plain", {})], worst)
             continue
         phi, rhs = (torch.randn(plan.shape, generator=gen,
                                 device=lvl.geo.device, dtype=lvl.geo.dtype)
@@ -2740,10 +2779,10 @@ FRONTS = (-4.0, 4.0)
 #: R1: main path 1's lengths and physics (D1_DECK) on a 128^3 base with
 #: one refined level at ratio (4,1,1) (the effective 512x128x128 of A2),
 #: the AMR cell's stand-in tags and multigrid parameters, regrids every 5
-#: steps, a CFL-limited dt, files every 10 steps, 40 coarse steps
+#: steps, a CFL-limited dt, files every 10 steps, 20 coarse steps (40
+#: until the mapped phases came, which the script's time limit needs)
 R1_DECK = D1_DECK.replace("amr.nx = 512 128 128", "amr.nx = 128 128 128") \
-    .replace("amr.nx_offset = -256 0 0", "amr.nx_offset = -64 0 0") \
-    .replace("amr.maxsteps = 20", "amr.maxsteps = 40") + """
+    .replace("amr.nx_offset = -256 0 0", "amr.nx_offset = -64 0 0") + """
 amr.maxlevel = 1
 amr.refratio_lev0 = 4 1 1
 amr.regrid_intervals = 5
@@ -2756,7 +2795,7 @@ AMRMG.imax = 12
 #: (ext 128 fine cells in x) so that two patches fit the 128-cell base
 #: apart (R1's footprint, 94 base cells wide, cannot hold two); 6 coarse
 #: steps, one regrid and its files at step 5
-R2_DECK = R1_DECK.replace("amr.maxsteps = 40", "amr.maxsteps = 6") \
+R2_DECK = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 6") \
     .replace("amr.regrid_intervals = 5", "amr.regrid_intervals = 5\n"
              "amr.max_grid_size = 120") \
     .replace("plot.plot_interval = 10", "plot.plot_interval = 5") \
@@ -2798,25 +2837,29 @@ def patch_avgdown_err(torch, h, s0, fines, origins, weights,
                       parent_sels=None):
     """max over every refined level's active patches, over b and u, of
     |parent under the patch interior - restricted patch interior| (a 0-d
-    tensor); each patch against its own parent patch."""
+    tensor; a mapped slot's restriction weighted by its own J); each patch
+    against its own parent patch."""
     from somar_tpu_torch.amr.transfer import extract_patch, restrict_average
     errs = []
     for lev, c in enumerate(h.couplings):
         parents = ([s0] if lev == 0
                    else h.couplings[lev - 1].unstack(fines[lev - 1]))
-        for p, o, w, q in zip(c.unstack(fines[lev]),
-                              c.patch_origins(origins[lev]),
-                              c.patch_weights(weights[lev]),
-                              h._psel(lev, parent_sels)):
+        for k, (p, o, w, q) in enumerate(zip(c.unstack(fines[lev]),
+                                             c.patch_origins(origins[lev]),
+                                             c.patch_weights(weights[lev]),
+                                             h._psel(lev, parent_sels))):
             if w is not None and w == 0.0:
                 continue
             par = parents[q]
             org_c = c.covered_origin_c(o)
+            J = c.slot_J(k)
+            Jb = None if J is None else extract_patch(J, c.int_start,
+                                                      c.int_shape)
+            avg = lambda a: restrict_average(a, c.ext_grid, c.ratio)
             for coarse, f in ((par.scalars[0], p.scalars[0]),
                               *zip(par.vel, p.vel)):
-                want = restrict_average(extract_patch(f, c.int_start,
-                                                      c.int_shape),
-                                        c.ext_grid, c.ratio)
+                blk = extract_patch(f, c.int_start, c.int_shape)
+                want = avg(blk) if Jb is None else avg(blk * Jb) / avg(Jb)
                 errs.append((extract_patch(coarse, org_c, want.shape)
                              - want).abs().max())
     return torch.stack(errs).max()
@@ -3048,13 +3091,14 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
 
 
 def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
-                   want_k=None, unbounded=()):
+                   want_k=None, unbounded=(),
+                   path=("ctu_corr3",) + AMR_PATH_2D, standins=STANDINS):
     """R1 / R2: a full-width AMR deck through RunDriver on the card with
     the counts set to 0 just before; prints ms per coarse step (plain and
     regrid steps apart), seconds per regrid, K, origins and tag coverage
     at placement and after each regrid, launches and host reads per
-    coarse step, file seconds and peak memory; applies amr_gates.
-    Returns the run."""
+    coarse step, file seconds and peak memory; applies amr_gates and
+    requires every kernel of `path` launched.  Returns the run."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_r_") as out:
         cwd = os.getcwd()
         os.chdir(out)
@@ -3072,7 +3116,7 @@ def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
     rows = run["rows"]
     say(f"{label} base {h.grid0.nx} ratio {c.ratio}, nt {c.nt}: "
         f"{run['steps']} coarse steps in {run['seconds']:.2f} s (set-up and "
-        f"files included); {STANDINS}; ms per coarse step: plain steps "
+        f"files included); {standins}; ms per coarse step: plain steps "
         f"median {ms_of(plain):.3f} samples "
         + ",".join(f"{1e3 * t:.3f}" for t in plain)
         + (f"; regrid steps median {ms_of(regrid):.3f} samples "
@@ -3119,7 +3163,7 @@ def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
             for r in regrid_log(run)):
         raise PhaseError(f"{label}: not {want_k} active patches at every "
                          f"regrid: {regrid_log(run)}")
-    check_launched(run["launches"], ("ctu_corr3",) + AMR_PATH_2D, label)
+    check_launched(run["launches"], path, label)
     return run
 
 
@@ -3181,7 +3225,7 @@ N1_DECK = R1_DECK.replace("amr.maxlevel = 1", "amr.maxlevel = 2").replace(
     "amr.refratio_lev0 = 4 1 1",
     "amr.refratio_lev0 = 4 1 1\namr.refratio_lev1 = 4 1 2").replace(
     "amr.regrid_intervals = 5", "amr.regrid_intervals = 5 5").replace(
-    "amr.maxsteps = 40", "amr.maxsteps = 10")
+    "amr.maxsteps = 20", "amr.maxsteps = 10")
 #: the levels of N1 held to finiteness, not to B_BOUNDS: at R1's
 #: CFL-limited dts the JAX package's nested level grows a grid-scale
 #: overshoot of b at the lock's interface (ROADMAP C.25), so N1 prints
@@ -3319,6 +3363,332 @@ def nested_phases(torch, ck, gk, sgk, counters, device, smi, worst, files):
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 30-33: mapped refined levels (each slot on its own metric)
+# --------------------------------------------------------------------------
+#: the LockExchange_Ledge2D stand-ins (its input file is not in the repo):
+#: bed elevations Hl 1, Hr 0 under a top at H = 2, a 1-deep shelf dropping
+#: to the 2-deep basin across the lock (x in [-1, 1])
+LEDGE_KEYS = """
+geometry.coordMap = 5
+geometry.ledgeMapHl = 1
+geometry.ledgeMapHr = 0
+geometry.ledgeMapXl = -1
+geometry.ledgeMapXr = 1
+plot.writeGeometry = 1
+"""
+LEDGE_STANDINS = ("stand-ins until inputs.LockExchange_Ledge2D.machine is "
+                  "in the repository: the Ledge map with bed elevations "
+                  "Hl 1, Hr 0 under H = 2 across x in [-1, 1], D1's "
+                  "physics (15 x 2 [x 2], nu = kappa = 1e-4, CN, explicit "
+                  "gravity), buoyancy_tag_tol 0.2, tags_grow 1, "
+                  "MGParams(eps=1e-5, imax=12)")
+#: M0's first deck: tests/test_amr.py:236-249's Ledge hierarchy (48x16 on
+#: 8 x 1, LedgeMap depths 0.5 -> 1 over x in [-1, 1], ratio (2,2); bed
+#: elevations 0.5 and 0 under H = 1) as a deck, R0's other keys (regrids
+#: every 2 steps, 6 coarse steps)
+M0_LEDGE = R0_DECK.replace("amr.length = 15.0 2.0", "amr.length = 8.0 1.0") \
+    .replace("amr.refratio_lev0 = 4 1", "amr.refratio_lev0 = 2 2") \
+    + LEDGE_KEYS.replace("ledgeMapHl = 1", "ledgeMapHl = 0.5")
+#: M0's second deck: the same at amr.maxlevel = 2, ratios (4,1) then (4,2)
+#: (the DEM_2D style, tests/test_amr.py:167-169)
+M0_NESTED = M0_LEDGE.replace("amr.maxlevel = 1", "amr.maxlevel = 2") \
+    .replace("amr.refratio_lev0 = 2 2",
+             "amr.refratio_lev0 = 4 1\namr.refratio_lev1 = 4 2")
+#: M0's third deck: the TwistedMap two fronts of tests/test_amr.py:296-320
+#: (perturbations 0.2 0.02) on R0_TWO_FRONTS, K pinned at 2, no refluxing
+M0_TWO_FRONTS = R0_TWO_FRONTS + """geometry.coordMap = 1
+geometry.perturbations = 0.2 0.02
+amr.max_patches = 2
+plot.writeGeometry = 1
+"""
+#: M1: a 2D lock exchange on the Ledge map as an AMR deck (the stand-in
+#: for the absent LockExchange_Ledge2D deck): D1's physics and lengths in
+#: (x, z), a 1024x128 base at ratio (4,1), regrids every 5 steps, a
+#: CFL-limited dt, 10 coarse steps, files at step 10.  The first dt from
+#: rest is init_dt_multiplier x the base's viscous limit (ROADMAP C.20):
+#: at 0.1 (0.048) the patch's substeps blow up at its CF side under the
+#: top wall, on a Cartesian base too (ROADMAP C.29), so it starts at 0.01
+#: and grows by max_dt_grow to the CFL limit
+M1_DECK = D1_DECK.replace("amr.nx = 512 128 128", "amr.nx = 1024 128") \
+    .replace("amr.length = 15 2 2", "amr.length = 15 2") \
+    .replace("amr.nx_offset = -256 0 0", "amr.nx_offset = -512 0") \
+    .replace("amr.isPeriodic = 0 1 0", "amr.isPeriodic = 0 0") \
+    .replace("amr.maxsteps = 20", "amr.maxsteps = 10") + """
+amr.init_dt_multiplier = 0.01
+amr.maxlevel = 1
+amr.refratio_lev0 = 4 1
+amr.regrid_intervals = 5
+amr.buoyancy_tag_tol = 0.2
+amr.tags_grow = 1
+AMRMG.eps = 1e-5
+AMRMG.imax = 12
+""" + LEDGE_KEYS
+M1_BASE, M1_RATIO = (1024, 128), (4, 1)
+#: M2: R1's deck (a 128^3 base at ratio (4,1,1), patch ext 384x128x128) on
+#: the Ledge map extruded in y, 5 coarse steps, one regrid and its files
+#: at step 5
+M2_DECK = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 5") \
+    .replace("plot.plot_interval = 10", "plot.plot_interval = 5") \
+    .replace("plot.checkpoint_interval = 10",
+             "plot.checkpoint_interval = 5") + LEDGE_KEYS
+#: the kernels of a 2D mapped AMR deck's path: the advection on every
+#: level and the probed-stencil residual of every solve (a mapped level
+#: runs no uniform multigrid level); `mapped_path` adds the probed-stencil
+#: smoother where a multigrid level smooths pointwise (vertical line
+#: relaxation, which "auto" picks where the metric's vertical coupling
+#: dominates, is plain torch) and ctu_corr3 in 3D
+AMR_MAPPED_PATH_2D = ("ppm_predict", "ctu_final", "riemann_fluxdiv",
+                      "stencil_helm_residual")
+
+
+def mapped_path(h):
+    """The kernels that a run of mapped hierarchy h must launch:
+    AMR_MAPPED_PATH_2D, stencil_gsrb_sweeps where a multigrid level of a
+    level's projection or heat solves smooths pointwise on a probed plan,
+    ctu_corr3 in 3D."""
+    path = list(AMR_MAPPED_PATH_2D)
+    if h.grid0.ndim == 3:
+        path.append("ctu_corr3")
+    for lv in [h.level0] + [x for c in h.couplings for x in c.levels]:
+        mgs = [lv.projector.mg] + [hs.mg for hs in lv._heat_solvers()
+                                   if hs._fft is None]
+        if any(mode == "gsrb" and op._stencil_plan is not None
+               for mg in mgs for op, mode in zip(mg.ops, mg.modes)):
+            path.append("stencil_gsrb_sweeps")
+            break
+    return tuple(path)
+
+
+def slot_j_ranges(h):
+    """Per refined level, per slot, [min J, max J] (host floats)."""
+    return [[[round(float(lv.geo.J.min()), 6), round(float(lv.geo.J.max()),
+                                                     6)]
+             for lv in c.levels] for c in h.couplings]
+
+
+def cpu_deck_summary(deck, fronts, threads=4):
+    """amr_deck_run of `deck` on the CPU, in a worker process and a
+    temporary directory of its own (with file_layer's files): what the
+    card-against-CPU gates read of it (the final states, the placement and
+    regrid logs, the subcycling factors, the steps and the seconds)."""
+    import types
+    import torch
+    from somar_tpu_torch.ops import ctu_kernels as ck
+    from somar_tpu_torch.ops import gsrb_kernels as gk
+    from somar_tpu_torch.ops import stencil_gsrb_kernels as sgk
+    torch.set_num_threads(threads)
+    file_layer()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpu_") as out:
+        cwd = os.getcwd()
+        os.chdir(out)
+        try:
+            run = amr_deck_run(torch, deck, "cpu", (ck, gk, sgk), fronts)
+        finally:
+            os.chdir(cwd)
+    drv = run["drv"]
+    return dict(state=run["state"], fines=run["fines"], placed=run["placed"],
+                steps=run["steps"], seconds=run["seconds"],
+                drv=types.SimpleNamespace(regrids=drv.regrids,
+                                          nt_mults=drv.nt_mults))
+
+
+def mapped_card_vs_cpu(torch, device, counters, files):
+    """M0: each small mapped deck through RunDriver on the CPU and on the
+    card: the same per-level K, origins, weights and parent selections at
+    the placement and after every regrid, the same dynamic-subcycling
+    factors, every field of every level within R0_RTOL (the potentials
+    gauge-free), each slot's J range; then on the card the run resumed
+    from its mid-run checkpoint, equal to the uninterrupted one
+    (DRIVER_RTOL).  amr_gates hold the J-weighted average-down (1e-6) and
+    the sync relres.  The CPU runs go on in a worker process
+    (cpu_deck_summary) while the card's run here.  Returns the card's
+    launches of the three decks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    decks = (("ledge", M0_LEDGE, False, 1), ("nested", M0_NESTED, False, 2),
+             ("two fronts", M0_TWO_FRONTS, True, 1))
+    total = {}
+    # the CPU runs go on in one worker process while the card's run here
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {label: pool.submit(cpu_deck_summary, deck, fronts)
+                    for label, deck, fronts, _ in decks}
+        for label, deck, fronts, levels in decks:
+            total = mapped_deck_check(torch, device, counters, files, label,
+                                      deck, fronts, levels,
+                                      cpu_runs[label], total)
+    return total
+
+
+def mapped_deck_check(torch, device, counters, files, label, deck, fronts,
+                      levels, cpu_future, total):
+    """One M0 deck: its card run and resumed run here, against the CPU
+    run of `cpu_future` (cpu_deck_summary).  Returns `total` with the card
+    run's launches added."""
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m0_") as out:
+        cwd = os.getcwd()
+        os.chdir(out)
+        try:
+            card = runs[device] = amr_deck_run(torch, deck, device,
+                                               counters, fronts)
+            resumed = amr_deck_run(
+                torch, deck + "amr.restart_file = chkpt_000003.hdf5\n",
+                device, counters, fronts)
+        finally:
+            os.chdir(cwd)
+    if files is not None:
+        files.trees.clear()
+    runs["cpu"] = cpu_future.result()
+    t_cpu = runs["cpu"]["seconds"]
+    for k, v in card["launches"].items():
+        total[k] = total.get(k, 0) + v
+    rel = amr_pair_diffs(card, runs["cpu"])
+    err = max(rel.values())
+    res = max(max(field_diffs(x, y, AMR_FIELDS).values())
+              for x, y in zip((resumed["state"],) + resumed["fines"],
+                              (card["state"],) + card["fines"]))
+    log, cpu_log = nested_log(card), nested_log(runs["cpu"])
+    h = card["h"]
+    say(f"M0 {label} {h.grid0.nx} {type(h.level0.geo.geo).__name__} "
+        f"map, ratios {h.ratios}, {card['steps']} coarse steps on "
+        f"{device} ({card['seconds']:.2f} s) and on the CPU "
+        f"({t_cpu:.2f} s): (step, per level (K, origins, weights, "
+        f"parent_sel)) at placement and every regrid {log} (CPU "
+        f"{'the same' if log == cpu_log else cpu_log}); exts "
+        f"{[list(c.ext_nx) for c in h.couplings]}; J range per level "
+        f"per slot {slot_j_ranges(h)} (base "
+        f"[{float(h.level0.geo.J.min()):.6f}, "
+        f"{float(h.level0.geo.J.max()):.6f}]); slots built "
+        f"{h.slots_built} in {h.refresh_seconds:.3f} s; dts "
+        f"{['%.6g' % d for d in card['drv'].dts]}; nt_mults "
+        f"{card['drv'].nt_mults} (CPU {'the same' if card['drv'].nt_mults == runs['cpu']['drv'].nt_mults else runs['cpu']['drv'].nt_mults}); "
+        "card against CPU max|diff|/max|field| "
+        + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+        + f" (limit {R0_RTOL}); resumed from chkpt_000003 against the "
+        f"uninterrupted run {res:.3e} (limit {DRIVER_RTOL}); sync relres "
+        "per step " + ",".join(f"{r[2]:.3e}" for r in card["rows"])
+        + "; J-weighted average-down max|diff|/max|b| per step "
+        + ",".join(f"{r[0] / max(r[1], 1e-30):.2e}" for r in card["rows"])
+        + f"; launches {json.dumps(card['launches'])}")
+    amr_gates(card, f"M0 {label}")
+    if log != cpu_log or card["drv"].nt_mults != runs["cpu"][
+            "drv"].nt_mults:
+        raise PhaseError(f"M0 {label}: the card placed or regridded "
+                         "the patches otherwise than the CPU")
+    if not err <= R0_RTOL:
+        raise PhaseError(f"M0 {label}: the card's run differs from the "
+                         "CPU's")
+    if not (res <= DRIVER_RTOL and resumed["steps"] == card["steps"]
+            and nested_log(resumed)[-1][1:] == log[-1][1:]):
+        raise PhaseError(f"M0 {label}: the resumed run differs")
+    if not (h.is_mapped and len(h.couplings) == levels):
+        raise PhaseError(f"M0 {label}: not {levels} mapped refined "
+                         "levels")
+    if fronts:
+        c = h.couplings[0]
+        j0, j1 = (lv.geo.J for lv in c.levels)
+        if not (c.K == 2 and list(c.weights) == [1.0, 1.0]
+                and float((j0 - j1).abs().max()) > 1e-3):
+            raise PhaseError(f"M0 {label}: not two active slots on "
+                             "their own metrics")
+    check_launched(card["launches"], mapped_path(h), f"M0 {label}")
+    return total
+
+
+def refresh_split(run):
+    """Per regrid: (seconds, of them rebuilding slots, slots rebuilt)."""
+    return [(r["seconds"], r["refresh_seconds"], r["slots_built"])
+            for r in run["drv"].regrids]
+
+
+def mapped_level_twins(torch, ck, gk, sgk, run, worst, tag):
+    """M3's part for one run: K1-K4 at the padded shapes of every refined
+    level the run reached, and K7-K8 on every slot's own pressure and
+    diffusive hierarchies (solver_level_twins).  Returns the plan-less
+    solver levels."""
+    levels = {}
+    for (lev, ext), c in run["levels"].items():
+        for k, lv in enumerate(c.levels):
+            levels[f"{tag} level {lev} {ext} slot {k}"] = lv
+    return levels_kernel_twins(torch, ck, gk, sgk, levels, worst)
+
+
+def mapped_phases(torch, ck, gk, sgk, counters, device, smi, worst, files):
+    """M0, M1, M2 and M3, each printing its seconds: the small mapped decks
+    card against CPU, the 2D Ledge lock exchange at full width (its
+    footprint reckoned first), R1's deck on the Ledge map, then K1-K8
+    against their twins at their patch shapes and on each slot's solver
+    hierarchies (M0's two fronts included).  Returns {phase: (launches,
+    launches per coarse step)}, and under "times" K7/K8's times on M1's
+    and M2's finest patch projection plans (plan_timing)."""
+    import math
+    from somar_tpu_torch.amr.hierarchy import patch_footprint
+    out = {}
+    t0 = time.perf_counter()
+    out["m0"] = (mapped_card_vs_cpu(torch, device, counters, files), {})
+    say(f"phase M0: {time.perf_counter() - t0:.1f} s")
+    m3 = {}
+    for key, deck in (("m1", M1_DECK), ("m2", M2_DECK)):
+        t0 = time.perf_counter()
+        if key == "m1":
+            interior, ext = patch_footprint(M1_BASE, (False, False),
+                                            M1_RATIO)
+            say(f"M1 footprint reckoned by patch_footprint over the "
+                f"{M1_BASE} base at ratio {M1_RATIO}: interior {interior} "
+                f"ext {ext} = {math.prod(ext)} cells")
+        run = amr_deck_phase(torch, device, counters, smi, key.upper(),
+                             deck, path=(), standins=LEDGE_STANDINS)
+        if files is not None:
+            files.trees.clear()
+        h = run["h"]
+        check_launched(run["launches"], mapped_path(h), key.upper())
+        say(f"{key.upper()} mapped slots: J range per level per slot "
+            f"{slot_j_ranges(h)}; per regrid (seconds, of them rebuilding "
+            f"the slots' metric and levels, slots rebuilt) "
+            f"{refresh_split(run)}; tagging and placement the rest; slots "
+            f"built in the run {h.slots_built} in {h.refresh_seconds:.3f} s "
+            f"(placement included)")
+        if not h.is_mapped:
+            raise PhaseError(f"{key.upper()}: the base is not mapped")
+        out[key] = (run["launches"], run["per_step"])
+        m3[key] = run
+        say(f"phase {key.upper()}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    plain, times = {}, {}
+    gen = torch.Generator(device=device).manual_seed(37)
+    for key, run in m3.items():
+        plain.update(mapped_level_twins(torch, ck, gk, sgk, run, worst,
+                                        key.upper()))
+        # K7/K8 per call on the slot's finest projection plan
+        splan = run["h"].couplings[0].level.projector.mg.ops[0]._stencil_plan
+        times[f"{key.upper()} patch {tuple(splan.shape)}"] = plan_timing(
+            torch, sgk, splan, f"{key.upper()} patch", gen)
+    out["times"] = times
+    del m3
+    # M0's two fronts on the card: two slots, each its own hierarchy
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m3_") as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            run = amr_deck_run(torch, M0_TWO_FRONTS.replace(
+                "amr.maxsteps = 6", "amr.maxsteps = 2"), device, counters,
+                True)
+        finally:
+            os.chdir(cwd)
+    if files is not None:
+        files.trees.clear()
+    plain.update(mapped_level_twins(torch, ck, gk, sgk, run, worst,
+                                    "M0 two fronts"))
+    del run
+    say(f"M3 solver levels without a kernel plan (plain path): "
+        f"{json.dumps(plain)}")
+    say(f"phase M3: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def json_finite(x):
     """x with every non-finite float (a device time the profiler did not
     see, NaN) as None, so that the kernels line is strict JSON."""
@@ -3424,6 +3794,8 @@ def main() -> int:
                             files)
     amr_n = nested_phases(torch, ck, gk, sgk, counters, device, smi, errs,
                           files)
+    amr_m = mapped_phases(torch, ck, gk, sgk, counters, device, smi, errs,
+                          files)
 
     k6_levels = {}
     for shape, (ms, plain, dev) in k6_times.items():
@@ -3503,7 +3875,18 @@ def main() -> int:
             launches_per_r2_coarse_step=amr_r["r2"][1][name],
             launches_n0=amr_n["n0"][0][name],
             launches_n1=amr_n["n1"][0][name],
-            launches_per_n1_coarse_step=amr_n["n1"][1][name])
+            launches_per_n1_coarse_step=amr_n["n1"][1][name],
+            launches_m0=amr_m["m0"][0][name],
+            launches_m1=amr_m["m1"][0][name],
+            launches_per_m1_coarse_step=amr_m["m1"][1][name],
+            launches_m2=amr_m["m2"][0][name],
+            launches_per_m2_coarse_step=amr_m["m2"][1][name])
+        if source == STENCIL_SOURCE:
+            entry_["mapped_patches"] = {
+                label: dict(K=K, ms=t[name][0], plain_ms=t[name][1],
+                            device_ms=t[name][2],
+                            bound_ms=bound_ms(name, n, K=K)[0])
+                for label, (n, K, t) in amr_m["times"].items()}
         if name in flat_times:
             entry_["flattened_leptic_level"] = flat_times[name]
         if name == "ppm_predict":

@@ -1,5 +1,5 @@
 """Composite multi-level elliptic solver over the AMR hierarchy (PyTorch
-port of `somar_tpu.amr.composite` on Cartesian grids).
+port of `somar_tpu.amr.composite`).
 
 One composite pass is a multiplicative pass across every refinement
 boundary:
@@ -20,9 +20,10 @@ fine-minus-coarse flux deficit of the current iterate (times the patch's
 weight).  Convergence is read from the COMPOSITE residual: per level r =
 rhs - L(phi; ring ghosts), each parent patch's cells covered by an active
 child of its own masked, the cells next to the interfaces
-reflux-corrected, each patch's max-norm times its weight.  Each level
-solves with its projector's solver (spectral, multigrid, BiCGStab or
-leptic) under the solve's `purpose` ("sync").
+reflux-corrected, each patch's max-norm times its weight.  Each patch
+solves with its own level's projector solver (spectral, multigrid,
+BiCGStab or leptic; on a mapped base each slot's own metric) under the
+solve's `purpose` ("sync").
 """
 
 from __future__ import annotations
@@ -93,9 +94,10 @@ class AMRCompositeSolver:
                                             phis[1:])], info
 
     # ------------------------------------------------------------- pieces
-    def _level(self, lev: int):
-        """The level object of level lev (0: the base)."""
-        return self.h.level0 if lev == 0 else self.h.couplings[lev - 1].level
+    def _level(self, lev: int, p: int = 0):
+        """The level object of patch p of level lev (0: the base)."""
+        return (self.h.level0 if lev == 0
+                else self.h.couplings[lev - 1].levels[p])
 
     def _covered_mask(self, lev: int, p: int, args):
         """True on the cells of level lev (its patch p; the base at lev =
@@ -129,10 +131,11 @@ class AMRCompositeSolver:
         h = self.h
         res = [[h.level0.projector.op.residual(phis[0], rhss[0])]]
         for lev, c in enumerate(h.couplings):
-            level, par_level = c.level, self._level(lev)
+            lvls = c.levels
             par_phis = [phis[0]] if lev == 0 else phis[lev]
             rrs = []
             for k, (o, w, p) in enumerate(zip(*args[lev])):
+                level, par_level = lvls[k], self._level(lev, p)
                 ring = c._ring(par_phis[p], o)
                 rrs.append(level.projector.op.residual(
                     phis[lev + 1][k],
@@ -162,11 +165,12 @@ class AMRCompositeSolver:
         level lev + 1's]; rings: the children's CF rings; par_rings: the
         parent patches' own (None for the base)."""
         c = self.h.couplings[lev]
-        level, par_level = c.level, self._level(lev)
+        lvls = c.levels
         par_phis = phis[0] if lev > 0 else [phis[0]]
         par = list(rhss[0]) if lev > 0 else [rhss[0]]
         apply_par = {}
         for k, (o, w, p) in enumerate(zip(*args[lev])):
+            level, par_level = lvls[k], self._level(lev, p)
             if p not in apply_par:
                 ap = par_level.projector.op.apply(par_phis[p])
                 if par_rings is not None:
@@ -194,8 +198,9 @@ class AMRCompositeSolver:
         c = self.h.couplings[lev]
         par_phis = phis[0] if lev > 0 else [phis[0]]
         out = list(par) if lev > 0 else [par]
+        lvls = c.levels
         for k, (o, w, p) in enumerate(zip(*args[lev])):
-            out[p] = self._reflux_fold(c, c.level, self._level(lev),
+            out[p] = self._reflux_fold(c, lvls[k], self._level(lev, p),
                                        phis[1][k], rings[k], par_phis[p],
                                        o, out[p], +1.0, w)
         return out if lev > 0 else out[0]
@@ -230,12 +235,13 @@ class AMRCompositeSolver:
             new = [phi0]
             for lev, c in enumerate(h.couplings):
                 par_phis = [phi0] if lev == 0 else new[lev]
+                lvls = c.levels
                 outs = []
                 for k, (o, _, q) in enumerate(zip(*args[lev])):
                     rhs_f = eff[lev + 1][k] \
-                        - c.level.projector._rhs_ring_correction(
+                        - lvls[k].projector._rhs_ring_correction(
                             c._ring(par_phis[q], o))
-                    out, _ = c.level.projector._solve(
+                    out, _ = lvls[k].projector._solve(
                         rhs_f, phi0=phis[lev + 1][k], purpose=p.purpose)
                     outs.append(out)
                 new.append(outs)

@@ -1,6 +1,6 @@
 """The AMR hierarchy: a base level and nested refined levels of K
 same-shape patches each, subcycled (PyTorch port of
-`somar_tpu.amr.hierarchy` on Cartesian grids).
+`somar_tpu.amr.hierarchy`).
 
   * A patch is a dense rectangular block of static shape that spans the
     vertical and every periodic direction; its other horizontal sides are
@@ -35,14 +35,26 @@ same-shape patches each, subcycled (PyTorch port of
     parent, and the composite sync projection over all levels
     (amr/composite.py) with the elliptic reflux of each CF interface.
 
-What the JAX package has beyond this (mapped patches, refluxing, the VD
-correction, post-regrid smoothing, sharded steps) raises
+  * On a mapped (terrain-following) base every patch slot carries its own
+    metric: the coordinate map evaluated at the patch's physical position,
+    kept as a raw geometry (multigrid coarsens its arrays, as the JAX
+    package's patch bundles do), with the geometry-derived problem fields
+    (N^2, the sponge) and its own PatchNSLevel.  The slots are rebuilt at
+    every placement, regrid and restore (`_refresh`); a slot whose global
+    origin did not move keeps its level.  The patches advance and project
+    on their own levels, average down weighted by their own J, and the
+    composite solve applies every patch's own operator.
+
+What the JAX package has beyond this (refluxing, the VD correction,
+post-regrid smoothing, RK3 with CF rings, sharded steps) raises
 NotImplementedError naming slice 11 of the port.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import time
 import warnings
 from typing import Optional, Sequence, Tuple
 
@@ -61,7 +73,8 @@ from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from somar_tpu_torch.ops.stencil import mac_divergence, slc
 from somar_tpu_torch.physics.godunov import ADVECT_GROW
 from somar_tpu_torch.physics.navier_stokes import NSLevel, NSParams, NSState
-from somar_tpu_torch.problems.base import Problem
+from somar_tpu_torch.geometry.raw_geometry import raw_from_level_geometry
+from somar_tpu_torch.problems.base import Problem, sponge_ramp
 from somar_tpu_torch.projection.projector import LevelProjector, pressure_bcs
 from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.parabolic import make_heat_solver
@@ -172,8 +185,8 @@ class PatchNSLevel(NSLevel):
     than the rebuilt per-component solvers."""
 
     def __init__(self, geo, problem: Problem, params: NSParams,
-                 cf_dirs: Tuple[int, ...]):
-        super().__init__(geo, problem, params)
+                 cf_dirs: Tuple[int, ...], aux_fields=None):
+        super().__init__(geo, problem, params, aux_fields=aux_fields)
         grid = self.grid
         self.vel_bcs_trace = tuple(
             _replace_cf_sides(b, cf_dirs, BC.extrap(1))
@@ -213,25 +226,28 @@ class PatchCoupling:
     parent level: the base level, or the patches of the level above.
 
     `parent_grid` is the whole parent array's grid (the base domain, or
-    the parent's extended patch grid); `parent_halo_axes` is the parent's
-    own CF halo per array axis (0 for the base), which the donor slabs
-    avoid, `nest_buffer` parent cells more.  Origins are per ARRAY axis,
-    in fine cells, of the EXTENDED patch relative to the parent array's
-    corner (host ints): an (ndim,) array at K = 1, a (K, ndim) array with
-    (K,) weights at K > 1, where a weight-0 slot duplicates slot 0 and
-    adds nothing to its parent.  Under a parent of several patches,
-    parent_sel[k] is the parent patch that slot k nests in."""
+    the parent's extended patch grid); `geo_source` is the domain's
+    coordinate map; `parent_halo_axes` is the parent's own CF halo per
+    array axis (0 for the base), which the donor slabs avoid,
+    `nest_buffer` parent cells more.  Origins are per ARRAY axis, in fine
+    cells, of the EXTENDED patch relative to the parent array's corner
+    (host ints): an (ndim,) array at K = 1, a (K, ndim) array with (K,)
+    weights at K > 1, where a weight-0 slot duplicates slot 0 and adds
+    nothing to its parent.  Under a parent of several patches,
+    parent_sel[k] is the parent patch that slot k nests in.
 
-    def __init__(self, parent_geo, problem: Problem, params: NSParams,
-                 ratio: Tuple[int, ...], use_subcycling: bool = True,
+    `levels` holds one PatchNSLevel per slot: on a Cartesian map the one
+    level K times; on a mapped one each slot's own, set by the
+    hierarchy's refresh at every placement, regrid and restore (none
+    before the first)."""
+
+    def __init__(self, parent_grid: Grid, problem: Problem,
+                 params: NSParams, ratio: Tuple[int, ...], *, device,
+                 geo_source, use_subcycling: bool = True,
                  max_grid_size: int = 0, patch_frac: float = 0.5,
                  num_patches: int = 1,
                  parent_halo_axes: Optional[Tuple[int, ...]] = None,
-                 nest_buffer: int = 0, root_geo_source=None):
-        parent_grid: Grid = parent_geo.grid
-        if not parent_geo.is_uniform:
-            raise _slice11("a mapped base level (patches with their own "
-                           "metric)")
+                 nest_buffer: int = 0):
         ndim = parent_grid.ndim
         self.parent_grid = parent_grid
         self.parent_halo_axes = ((0,) * ndim if parent_halo_axes is None
@@ -242,9 +258,9 @@ class PatchCoupling:
         self.nest_buffer = int(nest_buffer)
         self.problem = problem
         self.params = params
-        self.device = parent_geo.device
-        self.geo_source = (root_geo_source if root_geo_source is not None
-                           else parent_geo.geo)
+        self.device = torch.device(device)
+        self.geo_source = geo_source
+        self.is_mapped = not geo_source.is_uniform
         self.ratio = tuple(int(r) for r in ratio)
         self.nt = max(self.ratio) if use_subcycling else 1
         self.K = int(num_patches)
@@ -263,14 +279,22 @@ class PatchCoupling:
             parent_grid.nx, parent_grid.periodic, self.ratio, patch_frac,
             max_grid_size, H, parent_halo=ph_dir)
         dx_f = tuple(parent_grid.dx[d] / self.ratio[d] for d in range(ndim))
-        # x0 is a placeholder: the patch's fields come from its parent
+        # x0 is a placeholder: the patch's fields come from its parent, and
+        # a mapped slot's metric is evaluated at its own position
         self.ext_grid = Grid(
             nx=self.ext_nx, dx=dx_f, x0=tuple(parent_grid.x0),
             periodic=tuple(parent_grid.periodic[d] and d in self.span_dirs
                            for d in range(ndim)))
-        geo = build_level_geometry(self.ext_grid, self.geo_source,
-                                   device=self.device, dtype=params.dtype)
-        self.level = PatchNSLevel(geo, problem, params, self.cf_dirs)
+        #: per slot (mapped): {"geo": raw geometry, "aux": problem fields},
+        #: the concrete map metric and the global origin it was built at
+        self.bundles = self.slot_geos = self.slot_origins = None
+        self._slot_levels = None
+        self._level = None
+        if not self.is_mapped:
+            geo = build_level_geometry(self.ext_grid, geo_source,
+                                       device=self.device,
+                                       dtype=params.dtype)
+            self._level = self.make_level(geo)
 
         mask = torch.zeros(self.ext_grid.shape, dtype=torch.bool,
                            device=self.device)
@@ -309,6 +333,82 @@ class PatchCoupling:
         self._slot_overflow = 0
         #: consecutive origin choices that dropped tagged cells
         self._drop_streak = 0
+        #: the parent coupling (None: the base level, `_base_level`)
+        self._parent = None
+        self._base_level = None
+
+    # --------------------------------------------------------------- slots
+    def make_level(self, geo, aux=None) -> PatchNSLevel:
+        """The patch level on geometry `geo` with the problem fields `aux`
+        ({"nsq_cc", "sponge_ramp", "sponge_targets"}; None: derived from
+        geo)."""
+        return PatchNSLevel(geo, self.problem, self.params, self.cf_dirs,
+                            aux_fields=aux)
+
+    def build_patch_bundle(self, global_origin_f, domain_grid: Grid):
+        """The map's metric at a patch's physical position (its global
+        fine origin over the domain's corner) and the problem fields
+        derived from it: ({"geo": the metric as a raw geometry on the
+        extended grid, "aux": nsq_cc / sponge_ramp / sponge_targets as the
+        problem has them}, the concrete LevelGeometry at the position)."""
+        ndim = domain_grid.ndim
+        dx_f = self.ext_grid.dx
+        x0 = tuple(domain_grid.x0[d]
+                   + float(global_origin_f[domain_grid.axis(d)]) * dx_f[d]
+                   for d in range(ndim))
+        grid_at = Grid(nx=self.ext_nx, dx=dx_f, x0=x0,
+                       periodic=self.ext_grid.periodic)
+        lg = build_level_geometry(grid_at, self.geo_source,
+                                  device=self.device,
+                                  dtype=self.params.dtype)
+        kw = dict(dtype=self.params.dtype, device=self.device)
+        aux = {}
+        if self.problem.use_background_scalar:
+            aux["nsq_cc"] = torch.as_tensor(
+                np.asarray(self.problem.nsq_cc(lg)), **kw)
+        if self.problem.sponge is not None:
+            aux["sponge_ramp"] = torch.as_tensor(
+                sponge_ramp(grid_at, self.problem.sponge), **kw)
+            vt, st = self.problem.sponge_targets(lg)
+            aux["sponge_targets"] = (torch.as_tensor(vt, **kw),
+                                     torch.as_tensor(st, **kw))
+        return {"geo": raw_from_level_geometry(lg, self.ext_grid),
+                "aux": aux}, lg
+
+    @property
+    def levels(self):
+        """One level per slot (a list of K)."""
+        if not self.is_mapped:
+            return [self._level] * self.K
+        if self._slot_levels is None:
+            raise RuntimeError("a mapped patch has no metric before it is "
+                               "placed")
+        return list(self._slot_levels)
+
+    @property
+    def level(self):
+        """Slot 0's level."""
+        return self.levels[0]
+
+    def map_level(self, k: int = 0):
+        """Slot k's level seen through its concrete map metric (the
+        LevelGeometry at the patch's position, physical coordinates
+        included) rather than its raw one: what plot files read."""
+        lvl = self.levels[k]
+        if not self.is_mapped:
+            return lvl
+        view = copy.copy(lvl)
+        view.geo = self.slot_geos[k]
+        return view
+
+    def _pad_slots(self, pad: int):
+        """Append `pad` copies of slot 0 (weight-0 duplicates)."""
+        if self._slot_levels is None:
+            return
+        for name in ("bundles", "slot_geos", "slot_origins",
+                     "_slot_levels"):
+            v = getattr(self, name)
+            setattr(self, name, list(v) + [v[0]] * pad)
 
     # ---------------------------------------------------------------- util
     def _axis_ratio(self, ax: int) -> int:
@@ -417,17 +517,26 @@ class PatchCoupling:
         return ring
 
     def average_down(self, s_par: NSState, s_fine: NSState,
-                     origin_f, weight=None) -> NSState:
+                     origin_f, weight=None, J_f=None) -> NSState:
         """The patch interior's block average written over the parent
-        cells it covers (velocity, scalars, lambda).  A weight (a Python
-        float) blends the average with the parent data: weight 0 leaves
-        the parent as it is (an inactive slot)."""
+        cells it covers (velocity, scalars, lambda); with the patch's J
+        (a mapped slot) the average is volume-weighted, <b J> / <J>.  A
+        weight (a Python float) blends the average with the parent data:
+        weight 0 leaves the parent as it is (an inactive slot)."""
         origin_c = self.covered_origin_c(origin_f)
+        J_blk = J_avg = None
+        if J_f is not None:
+            J_blk = extract_patch(J_f.expand(self.ext_grid.shape),
+                                  self.int_start, self.int_shape)
+            J_avg = restrict_average(J_blk, self.ext_grid, self.ratio)
 
         def down(coarse, fine):
-            avg = restrict_average(extract_patch(fine, self.int_start,
-                                                 self.int_shape),
-                                   self.ext_grid, self.ratio)
+            blk = extract_patch(fine, self.int_start, self.int_shape)
+            if J_blk is None:
+                avg = restrict_average(blk, self.ext_grid, self.ratio)
+            else:
+                avg = restrict_average(blk * J_blk, self.ext_grid,
+                                       self.ratio) / J_avg
             if weight is not None:
                 cur = extract_patch(coarse, origin_c, avg.shape)
                 avg = cur + weight * (avg.to(coarse.dtype) - cur)
@@ -440,6 +549,11 @@ class PatchCoupling:
             scalars=torch.stack([down(c, f) for c, f in
                                  zip(s_par.scalars, s_fine.scalars)]),
             lam=down(s_par.lam, s_fine.lam))
+
+    def slot_J(self, k: int):
+        """Slot k's J for the volume-weighted average-down (None on a
+        Cartesian map)."""
+        return self.levels[k].geo.J if self.is_mapped else None
 
     # -------------------------------------------------------------- origin
     def _centered_origin(self) -> np.ndarray:
@@ -489,7 +603,11 @@ class PatchCoupling:
     def _masked_tags(self, s_par: NSState, tag_params: TagParams):
         """Tags of a parent state with the parent's own CF halo cleared
         (interpolated data, and no place for a donor slab)."""
-        tags = compute_tags(s_par, self._parent_level, tag_params)
+        # every parent patch is tagged on slot 0's map view: the JAX
+        # package's template level carries patch 0's metric (ROADMAP C.26)
+        parent_level = (self._base_level if self._parent is None
+                        else self._parent.map_level(0))
+        tags = compute_tags(s_par, parent_level, tag_params)
         for ax, ph in enumerate(self.parent_halo_axes):
             if ph > 0:
                 sl = [slice(None)] * tags.ndim
@@ -717,6 +835,12 @@ class AMRHierarchy:
         self._use_subcycling = bool(use_subcycling)
         self._max_grid_size = int(max_grid_size)
         self._grid_buffer_size = int(grid_buffer_size)
+        #: mapped slots: seconds spent rebuilding them (the map's metric,
+        #: the problem fields and the levels with their solver
+        #: hierarchies, synchronized on the GPU) and slots built, summed
+        #: over every refresh
+        self.refresh_seconds = 0.0
+        self.slots_built = 0
         self.couplings = []
         self._build_couplings(0)
 
@@ -729,26 +853,23 @@ class AMRHierarchy:
         patch_frac; the deeper levels lose their placement."""
         del self.couplings[start_lev:]
         if start_lev == 0:
-            parent_geo, parent_level, parent_halo = (self._geo0, self.level0,
-                                                     None)
+            parent, parent_grid, parent_halo = None, self.grid0, None
         else:
-            cp = self.couplings[start_lev - 1]
-            parent_geo, parent_level = cp.level.geo, cp.level
-            parent_halo = cp._halo_axes()
+            parent = self.couplings[start_lev - 1]
+            parent_grid, parent_halo = parent.ext_grid, parent._halo_axes()
         for lev in range(start_lev, len(self.ratios)):
-            c = PatchCoupling(parent_geo, self.problem, self.params,
-                              self.ratios[lev],
+            c = PatchCoupling(parent_grid, self.problem, self.params,
+                              self.ratios[lev], device=self._geo0.device,
+                              geo_source=self._geo0.geo,
                               use_subcycling=self._use_subcycling,
                               max_grid_size=self._max_grid_size,
                               patch_frac=self._level_frac(lev),
                               num_patches=self._per_level_K[lev],
                               parent_halo_axes=parent_halo,
-                              nest_buffer=self._grid_buffer_size,
-                              root_geo_source=self._geo0.geo)
-            c._parent_level = parent_level
+                              nest_buffer=self._grid_buffer_size)
+            c._parent, c._base_level = parent, self.level0
             self.couplings.append(c)
-            parent_geo, parent_level = c.level.geo, c.level
-            parent_halo = c._halo_axes()
+            parent, parent_grid, parent_halo = c, c.ext_grid, c._halo_axes()
         c0 = self.couplings[0]
         self.ext_nx = c0.ext_nx
         self.halo = c0.halo
@@ -796,12 +917,66 @@ class AMRHierarchy:
     def attach_mesh(self, mesh):
         raise _slice11("attach_mesh (sharded hierarchy steps)")
 
+    @property
+    def is_mapped(self) -> bool:
+        return not self._geo0.geo.is_uniform
+
+    @property
+    def geo_bundles(self):
+        """Per refined level, its slots' levels (a tuple of K; None on a
+        Cartesian map), or None when the map is Cartesian.  Every method
+        that takes `geos` uses these without it."""
+        if not self.is_mapped:
+            return None
+        return tuple(tuple(c.levels) for c in self.couplings)
+
     # ----------------------------------------------------------- arguments
-    @staticmethod
-    def _check_geos(geos):
-        if geos is not None and any(x is not None for x in (
-                geos if isinstance(geos, (list, tuple)) else [geos])):
-            raise _slice11("geos (mapped patches)")
+    def _check_geos(self, geos, single: bool = False):
+        """`geos` of the JAX signature: None, or per refined level the
+        slots' levels this hierarchy holds (`geo_bundles`); entries of a
+        Cartesian level are ignored, as in the JAX package."""
+        if geos is None:
+            return
+        gs = [geos] if single else list(geos)
+        own = self.geo_bundles
+        for lev, g in enumerate(gs):
+            if g is None or not self.couplings[lev].is_mapped:
+                continue
+            if tuple(g) != own[lev]:
+                raise ValueError(
+                    "geos: a mapped level's slots carry their own levels; "
+                    "pass None or this hierarchy's geo_bundles")
+
+    # ----------------------------------------------------------- slots
+    def _refresh(self, lev: int):
+        """Rebuild the slots of mapped level lev at their current global
+        origins: for each, the map's metric as a raw geometry, the
+        problem fields and its PatchNSLevel, or the slot of the last
+        refresh at the same origin (the same numbers, bitwise), with the
+        time it takes added to refresh_seconds."""
+        c = self.couplings[lev]
+        if not c.is_mapped:
+            return
+        t0 = time.perf_counter()
+        have = {}
+        if c.slot_origins is not None:
+            for k, g in enumerate(c.slot_origins):
+                have.setdefault(g, (c.bundles[k], c.slot_geos[k],
+                                    c._slot_levels[k]))
+        slots = []
+        for k in range(c.K):
+            g = tuple(int(x) for x in self._global_origin(lev, patch=k))
+            if g not in have:
+                bundle, lg = c.build_patch_bundle(g, self.grid0)
+                have[g] = (bundle, lg, c.make_level(bundle["geo"],
+                                                    bundle["aux"]))
+                self.slots_built += 1
+            slots.append((g,) + have[g])
+        c.slot_origins, c.bundles, c.slot_geos, c._slot_levels = (
+            list(x) for x in zip(*slots))
+        if c.device.type == "cuda":
+            torch.cuda.synchronize(c.device)
+        self.refresh_seconds += time.perf_counter() - t0
 
     def _forms(self, fine_states, origins, weights=None):
         """(fine states, origins, weights or None, single) as per-level
@@ -856,6 +1031,7 @@ class AMRHierarchy:
         states.  fine_states[lev] is updated in place.  Returns the parent
         patches' states with each patch averaged down into its own."""
         c = self.couplings[lev]
+        lvls = c.levels
         origs, ws, psel = args[lev]
         nt = c.nt * (1 if nt_mults is None else int(nt_mults[lev]))
         dt_f = dt / nt
@@ -877,7 +1053,7 @@ class AMRHierarchy:
                 prev[k] = s_f
                 rings = {"mac": c._ring(mac_mid, o),
                          "cc": c._ring(cc_mid, o, 1.0 / nt)}
-                patches[k] = c.level.advance(s_f, dt_f, rings=rings)
+                patches[k] = lvls[k].advance(s_f, dt_f, rings=rings)
             if has_child:
                 patches = self._advance_recursive(
                     lev + 1, prev, patches, fine_states, args, dt_f,
@@ -886,7 +1062,7 @@ class AMRHierarchy:
         out = list(pars_new)
         for k, o in enumerate(origs):
             out[psel[k]] = c.average_down(out[psel[k]], patches[k], o,
-                                          weight=ws[k])
+                                          weight=ws[k], J_f=c.slot_J(k))
         return out
 
     def advance(self, s0: NSState, fine_states, origins, dt, geos=None,
@@ -897,9 +1073,9 @@ class AMRHierarchy:
         composite sync projection.  fine_states / origins / weights: per
         refined level (or the one level's, bare); parent_sels: per level
         where the parent has K > 1 patches.  Returns (s0_new,
-        fine_states_new) in the form given."""
-        self._check_geos(geos)
+        fine_states_new) in the form given.  geos: see _check_geos."""
         fs, orgs, ws, single = self._forms(fine_states, origins, weights)
+        self._check_geos(geos, single)
         args = self._patch_args(orgs, ws, parent_sels)
         dt = float(dt)
         s0_new = self.level0.advance(s0, dt)
@@ -914,8 +1090,8 @@ class AMRHierarchy:
                      weights=None, parent_sels=None, iters: int = 1):
         """Composite initial projection(s) over the freshly placed
         hierarchy.  Returns (s0, refined levels' states as a tuple)."""
-        self._check_geos(geos)
-        fs, orgs, ws, _ = self._forms(fine_states, origins, weights)
+        fs, orgs, ws, single = self._forms(fine_states, origins, weights)
+        self._check_geos(geos, single)
         args = self._patch_args(orgs, ws, parent_sels)
         for _ in range(max(1, int(iters))):
             s0 = self._sync_project(s0, fs, args)
@@ -926,8 +1102,8 @@ class AMRHierarchy:
                             iters: int = 1):
         """Converge the lagged pressures of every level with dummy coarse
         steps that keep only the pressure fields."""
-        self._check_geos(geos)
         fs, orgs, ws, single = self._forms(fine_states, origins, weights)
+        self._check_geos(geos, single)
         keep = lambda dst, src: dataclasses.replace(
             dst, pressure=src.pressure, mac_phi=src.mac_phi,
             cc_phi=src.cc_phi)
@@ -956,20 +1132,22 @@ class AMRHierarchy:
         fluxs = [[f0]]
         patches = []
         for lev, c in enumerate(self.couplings):
-            lvl = c.level
+            lvls = c.levels
             patches.append(c.unstack(fine_states[lev]))
-            fl = [lvl.projector.cc_fluxes(p.vel, lvl.vel_bcs_trace)
-                  for p in patches[lev]]
+            fl = [lv.projector.cc_fluxes(p.vel, lv.vel_bcs_trace)
+                  for lv, p in zip(lvls, patches[lev])]
             fluxs.append(fl)
-            rhss.append([mac_divergence(f, lvl.geo) for f in fl])
+            rhss.append([mac_divergence(f, lv.geo)
+                         for lv, f in zip(lvls, fl)])
         for lev in range(len(self.couplings) - 1, -1, -1):
             c = self.couplings[lev]
             origs, ws, psel = args[lev]
-            par_geo = (level0 if lev == 0
-                       else self.couplings[lev - 1].level).geo
+            par_lvls = ([level0] if lev == 0
+                        else self.couplings[lev - 1].levels)
             fr = PatchFluxRegister(c)
             for k, o in enumerate(origs):
                 p = psel[k]
+                par_geo = par_lvls[p].geo
                 reg = fr.increment_fine(fr.zeros(), fluxs[lev + 1][k], 1.0)
                 reg = fr.increment_coarse(reg, fluxs[lev][p], o)
                 sign = -(1.0 if ws[k] is None else ws[k])
@@ -986,11 +1164,12 @@ class AMRHierarchy:
             s0, vel=s0.vel - level0.projector.cc_correction(phis[0]))
         for lev, c in enumerate(self.couplings):
             origs, _, psel = args[lev]
+            lvls = c.levels
             for k, o in enumerate(origs):
                 ph_par = phis[0] if lev == 0 else phis[lev][psel[k]]
                 p_k = patches[lev][k]
                 patches[lev][k] = dataclasses.replace(
-                    p_k, vel=p_k.vel - c.level.projector.cc_correction(
+                    p_k, vel=p_k.vel - lvls[k].projector.cc_correction(
                         phis[lev + 1][k], c._ring(ph_par, o)))
         for lev in range(len(self.couplings) - 1, -1, -1):
             c = self.couplings[lev]
@@ -998,7 +1177,8 @@ class AMRHierarchy:
             parents = [s0] if lev == 0 else patches[lev - 1]
             for k, o in enumerate(origs):
                 parents[psel[k]] = c.average_down(
-                    parents[psel[k]], patches[lev][k], o, weight=ws[k])
+                    parents[psel[k]], patches[lev][k], o, weight=ws[k],
+                    J_f=c.slot_J(k))
             if lev == 0:
                 s0 = parents[0]
         for lev, c in enumerate(self.couplings):
@@ -1006,7 +1186,8 @@ class AMRHierarchy:
         return s0
 
     def average_down(self, s0: NSState, s1: NSState, origin_f) -> NSState:
-        return self.couplings[0].average_down(s0, s1, origin_f)
+        c = self.couplings[0]
+        return c.average_down(s0, s1, origin_f, J_f=c.slot_J(0))
 
     # ----------------------------------------------------------- placement
     def _global_origin(self, upto: int, last_origin=None,
@@ -1061,6 +1242,8 @@ class AMRHierarchy:
         return c, got
 
     def _set_patches(self, lev: int, org, w, psel, multi_parent: bool):
+        """Set level lev's origins, weights and parent selections and
+        refresh its slots."""
         c = self.couplings[lev]
         if c.K > 1:
             c.origin_f, c.weights = np.asarray(org, np.int64), w
@@ -1071,6 +1254,7 @@ class AMRHierarchy:
             c.weights = None
             c.parent_sel = (np.asarray(psel[:1], np.int64) if multi_parent
                             else None)
+        self._refresh(lev)
 
     def _result(self, states, origins, weights):
         """(states, origins) tuples and, when a level has K > 1 patches,
@@ -1159,6 +1343,7 @@ class AMRHierarchy:
         c.weights = w
         ps = self._own_psel(c)
         c.parent_sel = np.asarray(ps + [ps[0]] * pad, np.int64)
+        c._pad_slots(pad)
         c.K = self._per_level_K[lev] = new_k
         c._drop_streak = 0
         return old_k, new_k
@@ -1317,6 +1502,8 @@ class AMRHierarchy:
                 ps = np.zeros(c.K, np.int64)
             c.origin_f, c.weights, c.parent_sel = orgs[lev].copy(), w, ps
             out_w.append(None if w is None else w.copy())
+        for lev in range(len(self.couplings)):
+            self._refresh(lev)
         return tuple(fs), tuple(o.copy() for o in orgs), tuple(out_w)
 
     # ------------------------------------------------------------------ dt
@@ -1324,13 +1511,14 @@ class AMRHierarchy:
         """Per refined level, one unread dt tensor per patch."""
         fs = (list(fine_states) if isinstance(fine_states, (list, tuple))
               else [fine_states])
-        return [[c.level.compute_dt_tensor(p) for p in c.unstack(s)]
+        return [[lv.compute_dt_tensor(p)
+                 for lv, p in zip(c.levels, c.unstack(s))]
                 for c, s in zip(self.couplings, fs)]
 
     def compute_dt(self, s0: NSState, fine_states, geos=None) -> float:
         """Coarse dt limited so that every subcycled level stays in its
         CFL (a Python float; one host read)."""
-        self._check_geos(geos)
+        self._check_geos(geos, not isinstance(fine_states, (list, tuple)))
         dts = self.level_dts(s0, fine_states)
         dt, factor = dts[0], 1
         for c, d in zip(self.couplings, dts[1:]):
@@ -1342,7 +1530,7 @@ class AMRHierarchy:
         """Per-level CFL-limited dts (base first), not scaled by the
         subcycle counts: a refined level's is the least over its patches.
         Python floats, in one host read."""
-        self._check_geos(geos)
+        self._check_geos(geos, not isinstance(fine_states, (list, tuple)))
         per = self._level_dt_tensors(fine_states)
         vals = read_scalars(self.level0.compute_dt_tensor(s0),
                             *[t for ts in per for t in ts])

@@ -114,9 +114,10 @@ class RunDriver:
         #: AMR: the refined levels' states, origins and weights (tuples,
         #: one entry per refined level) at the end of the last run; the dt
         #: and the dynamic-subcycling factors of each step; per regrid a
-        #: dict of step, seconds, from_level and `levels`, per refined
-        #: level its K, origins, weights, parent selections, ext and tag
-        #: coverage (`level_log`)
+        #: dict of step, seconds (of which refresh_seconds rebuilt mapped
+        #: slots, slots_built of them), from_level and `levels`, per
+        #: refined level its K, origins, weights, parent selections, ext
+        #: and tag coverage (`level_log`)
         self.fine_state = self.origin = self.weights = None
         self.dts, self.nt_mults, self.regrids = [], [], []
         set_pout_dir(out_dir)
@@ -200,6 +201,7 @@ class RunDriver:
             return None
         h = self.hierarchy
         t0 = time.perf_counter()
+        r0, n0 = h.refresh_seconds, h.slots_built
         with timer("regrid"):
             got = h.regrid(state, fine, dt=dt, from_level=min(due))
         fine, origin = tuple(got[0]), tuple(got[1])
@@ -207,6 +209,8 @@ class RunDriver:
         self._sync()
         self.regrids.append(dict(
             step=step, seconds=time.perf_counter() - t0,
+            refresh_seconds=h.refresh_seconds - r0,
+            slots_built=h.slots_built - n0,
             from_level=min(due), levels=level_log(h)))
         shapes = lambda fs: [tuple(getattr(f, n.name).shape) for f in fs
                              for n in dataclasses.fields(f)]

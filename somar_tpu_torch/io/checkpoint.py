@@ -566,8 +566,9 @@ def chombo_plotfile_tree(state, level, step: int, plot_cfg=None,
             dom = dom * np.asarray(c.ratio[:ndim], np.int64)
             lev_dt /= c.nt
             boxes, ids = _fine_level_boxes(hierarchy, lev, c, dom)
+            # each patch with its own metric (a mapped slot's map view)
             per_box = [_plot_fields(fs[lev] if c.K == 1 else
-                                    tree_index(fs[lev], k), c.level,
+                                    tree_index(fs[lev], k), c.map_level(k),
                                     plot_cfg)
                        for k in ids]
             levels[-1] = levels[-1][:4] + (list(c.ratio[:ndim]),

@@ -91,22 +91,24 @@ def composite_mapped_norm(hierarchy, fields: Sequence, origins,
 
 
 def _composite(h, fields, origins, kind: str, p: int = 2):
-    levels = [h.level0] + [c.level for c in h.couplings]
     total = mx = None
-    for lev, level in enumerate(levels):
-        geo, grid = level.geo, level.geo.grid
+    for lev in range(1 + len(h.couplings)):
         if lev == 0:
-            parts = [(fields[0], None)]
+            parts = [(fields[0], None, h.level0.geo)]
         else:
             # a level of K > 1 patches passes its (K,)+shape stack; a
-            # weight-0 slot contributes nothing, the others times weight
+            # weight-0 slot contributes nothing, the others times weight;
+            # each patch's volumes are its own metric's (a mapped slot's
+            # J at its position)
             c = h.couplings[lev - 1]
-            parts = ([(fields[lev][k], w) for k, w in
+            geos = [lv.geo for lv in c.levels]
+            parts = ([(fields[lev][k], w, geos[k]) for k, w in
                       enumerate(c.patch_weights(c.weights))]
-                     if c.K > 1 else [(fields[lev], None)])
-        for k, (field, w) in enumerate(parts):
+                     if c.K > 1 else [(fields[lev], None, geos[0])])
+        for k, (field, w, geo) in enumerate(parts):
             if w == 0.0:
                 continue
+            grid = geo.grid
             device = field.device
             mask = (_halo_free_mask(h.couplings[lev - 1], grid, device)
                     if lev > 0 else torch.ones(grid.shape, dtype=torch.bool,

@@ -93,7 +93,8 @@ class LevelProjector:
         if self._mg is None:
             self._mg = LevelMultigrid(self.geo, self.phi_bcs,
                                       params=self._mg_params,
-                                      dtype=self._dtype)
+                                      dtype=self._dtype,
+                                      cf_coarse_dirichlet=True)
         return self._mg
 
     def _params_for(self, purpose) -> MGParams:
@@ -105,7 +106,8 @@ class LevelProjector:
         if purpose not in self._mgs:
             self._mgs[purpose] = LevelMultigrid(
                 self.geo, self.phi_bcs,
-                params=self._mg_by_purpose[purpose], dtype=self._dtype)
+                params=self._mg_by_purpose[purpose], dtype=self._dtype,
+                cf_coarse_dirichlet=True)
         return self._mgs[purpose]
 
     # ----------------------------------------------------------- solves

@@ -34,7 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from somar_tpu_torch.core.bc import FieldBCs
+from somar_tpu_torch.core.bc import BC, BCType, FieldBCs
 from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.level_geometry import (
     LevelGeometry, build_level_geometry)
@@ -198,11 +198,23 @@ class LevelMultigrid:
     Helmholtz coefficient rebuilds nothing."""
 
     def __init__(self, geo: LevelGeometry, bcs: FieldBCs,
-                 params: MGParams = MGParams(), dtype=torch.float32):
+                 params: MGParams = MGParams(), dtype=torch.float32,
+                 cf_coarse_dirichlet: bool = False):
+        """cf_coarse_dirichlet: the coarse levels' correction equations
+        take homogeneous Dirichlet at the face on the CF sides, where the
+        finest level has its ghost data (a projection on a patch: with
+        the ghost value held at each coarser ghost centre, the coarse
+        corrections overshoot the smooth modes and the V-cycle can
+        diverge, ROADMAP C.28)."""
         self.params = params
         self.dtype = dtype
         self.ratios = semicoarsening_schedule(geo.grid, params.max_depth)
         self.ops: List[PoissonOp] = [PoissonOp(geo, bcs)]
+        cbcs = bcs
+        if cf_coarse_dirichlet:
+            pin = lambda b: BC.dirichlet(0.0) if b.type == BCType.CF else b
+            cbcs = FieldBCs(lo=tuple(pin(b) for b in bcs.lo),
+                            hi=tuple(pin(b) for b in bcs.hi))
         raw = isinstance(geo.geo, RawGeoSource)
         g, lg = geo.grid, geo
         for ratio in self.ratios:
@@ -212,7 +224,7 @@ class LevelMultigrid:
             lg = (coarsen_raw_geometry(lg, ratio) if raw else
                   build_level_geometry(g, geo.geo, device=geo.device,
                                        dtype=dtype))
-            self.ops.append(PoissonOp(lg, bcs))
+            self.ops.append(PoissonOp(lg, cbcs))
         self.depth = len(self.ops)
         self.bcs_singular = self.ops[0].bcs_singular()
         self.modes = [self._level_mode(op) for op in self.ops]

@@ -34,7 +34,7 @@ from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 from somar_tpu_torch.ops import gsrb_kernels
 from somar_tpu_torch.ops import stencil_gsrb_kernels as sgk
 from somar_tpu_torch.ops.stencil import mac_divergence, mac_gradient, slc
-from somar_tpu_torch.solvers.tridiag import thomas_solve
+from somar_tpu_torch.solvers.tridiag import pcr_apply, pcr_factor
 
 
 class PoissonOp:
@@ -51,6 +51,8 @@ class PoissonOp:
         self._bc_face_factors = None
         self._rb_masks = None
         self._line_coefs = None
+        #: (key, pcr_factor) of the last line relaxation's matrix
+        self._line_factor = (None, None)
         self._fused_plan = gsrb_kernels.make_plan(self.grid, self.hom_bcs,
                                                   geo)
         self._stencil_plan = (sgk.build_stencil_plan(self)
@@ -241,24 +243,37 @@ class PoissonOp:
         """Vertical line relaxation: exact tridiagonal solve along z per
         column with horizontal terms lagged.  The line-block diagonal is
         the FULL operator diagonal: dropping the horizontal self-coupling
-        makes line-constant modes diverge."""
-        a_s, c_s = self._vertical_line_parts()
-        a = beta * a_s
-        c = beta * c_s
-        if jgup_delta is not None and jgup_delta[0] is not None:
-            dd = jgup_delta[0][self.grid.vertical_dir]
-            if dd is not None:
-                da, dc = self._line_coupling(dd)
-                a = a + beta * da
-                c = c + beta * dc
+        makes line-constant modes diverge.  The solve is parallel cyclic
+        reduction (the system is diagonally dominant): log2 nz steps of
+        whole-level operations, where the Thomas loop over the planes
+        took 2 nz launch-bound steps; its matrix part is kept for the
+        last (alpha, beta) of plain Python floats."""
         b = self.diag(alpha, beta, jgup_delta) * torch.ones_like(phi)
+        key = ((float(alpha), float(beta))
+               if jgup_delta is None and isinstance(alpha, (int, float))
+               and isinstance(beta, (int, float)) else None)
+        if key is not None and self._line_factor[0] == key:
+            factor = self._line_factor[1]
+        else:
+            a_s, c_s = self._vertical_line_parts()
+            a = beta * a_s
+            c = beta * c_s
+            if jgup_delta is not None and jgup_delta[0] is not None:
+                dd = jgup_delta[0][self.grid.vertical_dir]
+                if dd is not None:
+                    da, dc = self._line_coupling(dd)
+                    a = a + beta * da
+                    c = c + beta * dc
+            factor = pcr_factor(a, b, c)
+            if key is not None:
+                self._line_factor = (key, factor)
         red, black = self._masks()
         inv_diag = 1.0 / b
         for _ in range(iters):
             # the line solve kills vertical error; the GSRB sweep smooths
             # the horizontal high frequencies the line solve cannot
             r = self.residual(phi, rhs, alpha, beta, jgup_delta=jgup_delta)
-            phi = phi + thomas_solve(a, b, c, r)
+            phi = phi + pcr_apply(factor, r)
             for mask in (red, black):
                 r = self.residual(phi, rhs, alpha, beta,
                                   jgup_delta=jgup_delta)
@@ -292,9 +307,14 @@ class PoissonOp:
 
     def bcs_singular(self) -> bool:
         """True when the BCs admit the constant null space (all Neumann /
-        periodic / extrap); the operator is then singular iff alpha == 0."""
+        periodic / extrap); the operator is then singular iff alpha == 0.
+        A CF side (given ghost values, zero when homogeneous) pins the
+        potential as a Dirichlet side does, as in FFTPoissonSolver: a
+        patch's projection solved as singular would lose the mean of its
+        answer every V-cycle and stall at a residual of a few percent
+        (ROADMAP C.28)."""
         for d in range(self.grid.ndim):
             for bc in (self.bcs.lo[d], self.bcs.hi[d]):
-                if bc.type == BCType.DIRICHLET:
+                if bc.type in (BCType.DIRICHLET, BCType.CF):
                     return False
         return True

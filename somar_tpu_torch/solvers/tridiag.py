@@ -1,9 +1,14 @@
 """Batched tridiagonal solvers along the vertical axis (PyTorch port of
 `somar_tpu.solvers.tridiag`).
 
-One forward and one backward Python loop over array axis 0 solve every
-column of the level at once: each loop step is a handful of elementwise
-operations on a whole horizontal plane.
+`thomas_solve`: one forward and one backward Python loop over array axis
+0 solve every column of the level at once, each loop step a handful of
+elementwise operations on a whole horizontal plane (2n steps).
+`pcr_factor` / `pcr_apply`: parallel cyclic reduction, ceil(log2 n) steps
+of whole-array operations, for diagonally dominant systems (the multigrid
+line smoother's, whose matrix part is factored once per operator and
+coefficient pair), where a loop over the planes would be bound by its
+launches.
 """
 
 from __future__ import annotations
@@ -35,6 +40,50 @@ def thomas_solve(a, b, c, d):
         x = dps[i] - cps[i] * x
         out[i] = x
     return torch.stack(out)
+
+
+def _shift(t, s: int, fill: float = 0.0):
+    """t moved s planes along axis 0 (s > 0: t[i - s] at i; s < 0:
+    t[i + |s|] at i), `fill` where that plane is outside."""
+    n = t.shape[0]
+    pad = torch.full((min(abs(s), n),) + tuple(t.shape[1:]), fill,
+                     dtype=t.dtype, device=t.device)
+    if s > 0:
+        return torch.cat([pad, t[:n - s]]) if s < n else pad
+    return torch.cat([t[-s:], pad]) if -s < n else pad
+
+
+def pcr_factor(a, b, c):
+    """The matrix part of a parallel cyclic reduction along axis 0 (the
+    arguments as thomas_solve's): per step s = 1, 2, 4, ... the factors
+    that eliminate every row's couplings at distance s with its two
+    neighbours there, and 1 / the reduced diagonal.  Stable where the
+    matrix is diagonally dominant, as Thomas is.  A row's coupling to a
+    plane outside is zero, so those neighbours enter with diagonal 1."""
+    n = b.shape[0]
+    a = torch.cat([torch.zeros_like(a[:1]), a[1:]])
+    c = torch.cat([c[:-1], torch.zeros_like(c[:1])])
+    steps = []
+    s = 1
+    while s < n:
+        k_lo = -a / _shift(b, s, 1.0)
+        k_hi = -c / _shift(b, -s, 1.0)
+        b = b + k_lo * _shift(c, s) + k_hi * _shift(a, -s)
+        a = k_lo * _shift(a, s)
+        c = k_hi * _shift(c, -s)
+        steps.append((s, k_lo, k_hi))
+        s *= 2
+    return steps, 1.0 / b
+
+
+def pcr_apply(factor, d):
+    """Solve for right-hand sides d (batched as in pcr_factor) with a
+    factorization of pcr_factor: ceil(log2 n) steps of whole-array
+    operations."""
+    steps, binv = factor
+    for s, k_lo, k_hi in steps:
+        d = d + k_lo * _shift(d, s) + k_hi * _shift(d, -s)
+    return d * binv
 
 
 def vertical_poisson_nn(rhs, acoef_lo, acoef_hi, dz):

@@ -620,10 +620,11 @@ def test_aux_fields_stand_in_for_the_derived_ones():
 
 # ------------------------------------------------------------- slice 10
 def test_slice10_features_raise(pair):
-    """What slices 10 and 11a ported runs (K pinned by num_patches,
-    regrid, dynamic subcycling, weights at K = 1, nested levels);
-    refluxing, the VD correction, post-regrid smoothing, mapped patches
-    and sharded steps raise naming slice 11."""
+    """What slices 10, 11a and 11b ported runs (K pinned by num_patches,
+    regrid, dynamic subcycling, weights at K = 1, nested levels, mapped
+    patches and the `geos` argument); refluxing, the VD correction,
+    post-regrid smoothing, RK3 with CF rings and sharded steps raise
+    naming slice 11."""
     jh, th = pair
     level = th.level0
     kw = dict(ratio=(4, 1))
@@ -661,11 +662,34 @@ def test_slice10_features_raise(pair):
     assert torch.equal(r3[0][0].vel, g3[0].vel)
     with pytest.raises(ValueError, match="refined levels"):
         th.advance(s0, (fine, fine), (origin, origin), 0.01)
-    for call in (lambda: th.attach_mesh(None),
-                 lambda: th.advance(s0, fine, origin, 0.01,
-                                    geos=[{"geo": None}])):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            call()
+    # geos: a Cartesian level's entries are ignored, as in the JAX package
+    assert th.geo_bundles is None
+    g0, gf = th.advance(s0, fine, origin, 0.01, geos=[{"geo": None}])
+    p0, pf = th.advance(s0, fine, origin, 0.01)
+    for a, b in ((g0, p0), (gf, pf)):
+        assert torch.equal(a.vel, b.vel) and torch.equal(a.scalars,
+                                                         b.scalars)
+    # a mapped base (slice 11b): each slot on its own level; the geos
+    # call of the JAX signature runs with the hierarchy's own levels
+    from somar_tpu_torch.geometry.bathymetric import LedgeMap
+    from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+    g = level.geo.grid
+    hm = AMRHierarchy(build_level_geometry(
+        g, LedgeMap((0.0, 2.0), hl=1.0, hr=2.0, xl=-1.0, xr=1.0),
+        device="cpu", dtype=F64), level.problem, level.params, **kw)
+    m0, mf, mo = entry.place_amr(hm)
+    assert hm.is_mapped and hm.couplings[0].level.geo.J.shape == \
+        tuple(hm.couplings[0].ext_grid.shape)
+    n0, nf = hm.advance(m0, mf, mo, 0.01, geos=hm.geo_bundles[0])
+    assert bool(torch.isfinite(nf.vel).all())
+    with pytest.raises(ValueError, match="geo_bundles"):
+        hm.advance(m0, mf, mo, 0.01, geos=[{"geo": None}])
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        th.attach_mesh(None)
+    from somar_tpu_torch.physics.rk3 import advance_rk3
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        advance_rk3(th.couplings[0].level, fine, 0.01,
+                    rings={"mac": None, "cc": None})
 
 
 # ------------------------------------------------- the sync relres gate
