@@ -187,7 +187,7 @@ non-zero:
      kernel of the 2D AMR path launched;
  28. N1: R1's deck at three levels (N1_DECK: a second refined level at
      ratio (4,1,2), 16 level-2 substeps per coarse step, regrids of both
-     levels every 5 steps, 10 coarse steps, files at step 10), the
+     levels every 5 steps, 6 coarse steps, files at step 5), the
      level-2 footprint reckoned by patch_footprint first and the built one
      printed: R1's prints and gates at both interfaces, and per level K,
      ext, origins, parent selections and tag coverage at placement and
@@ -199,28 +199,49 @@ non-zero:
      the same time, on the CPU: M0_LEDGE (tests/test_amr.py:236-249's
      Ledge hierarchy, 48x16, ratio (2,2)), M0_NESTED (the same at
      amr.maxlevel = 2, ratios (4,1) and (4,2)) and M0_TWO_FRONTS (the
-     TwistedMap two fronts at K = 2), 6 coarse steps each: R0's gates
+     TwistedMap two fronts at K = 2), 6 coarse steps each (M0_NESTED
+     4): R0's gates
      (the average-down weighted by each slot's J), each slot's J range,
      and the two fronts' slots on metrics of their own;
  31. M1: a 2D lock exchange on the Ledge map (M1_DECK: D1's physics, base
      1024x128, ratio (4,1), the patch footprint reckoned first, regrids
-     every 5 steps, 10 coarse steps, files at step 10): R1's prints and
+     every 5 steps, 5 coarse steps, files at step 5): R1's prints and
      gates, per regrid the seconds spent rebuilding slots, and every
      kernel of the mapped path launched (mapped_path);
- 32. M2: R1's deck on the Ledge map extruded in y (M2_DECK, 5 coarse
+ 32. M2: R1's deck on the Ledge map extruded in y (M2_DECK, 2 coarse
      steps): the same;
  33. M3: K1-K4 at M1's and M2's padded patch shapes, K7/K8 on every
      slot's own projection and diffusive hierarchies (M1, M2, and the two
-     slots of M0_TWO_FRONTS) against their twins.
+     slots of M0_TWO_FRONTS) against their twins;
+ 34. F0: slice 11c's features on small decks (F0_DECKS: R0_DECK with the
+     three fields refluxed and the VD correction, the same with implicit
+     refluxing, N0_TWO_CHAINS and M0_TWO_FRONTS refluxing, R0_DECK with
+     RK3 and refluxing, R0_DECK with post-regrid smoothing), card
+     against CPU as M0 (e_lambda held too), resume, e_lambda filled and
+     lambda near 1 under the VD correction, implicit against explicit
+     refluxing, and the conservation gate of tests/test_amr.py:365 on an
+     inviscid R0_DECK with and without refluxing;
+ 35. F1: R1's deck at CFL 0.3 with velocity and buoyancy refluxed,
+     implicit refluxing, the VD correction and smoothing (F1_DECK, 10
+     coarse steps) and with none of them (F1_OFF): R1's prints and
+     gates, the composite buoyancy mass drift and max|lambda - 1| of
+     each; then F1_ALL, R1's deck as it stands with every feature on,
+     lambda refluxing too, a run of a fault of the reference (ROADMAP
+     C.31) held to finiteness, its drift, b and tag coverage printed;
+ 36. F2: F1's deck with RK3 and all three fields refluxed (F2_DECK, 5
+     coarse steps): R1's prints and gates, and no K4 launched.
 The line before the last is a JSON object describing each kernel, with
 launches_r0 / launches_r1 / launches_r2 / launches_n0 / launches_n1 /
-launches_m0 / launches_m1 / launches_m2 and the per-coarse-step counts of
-R1, R2, N1, M1 and M2; the last line is {"ok": true, "device": {...}}.
+launches_m0 / launches_m1 / launches_m2 / launches_f0 / launches_f1 /
+launches_f1_off / launches_f1_all / launches_f2 and the per-coarse-step
+counts of R1, R2, N1, M1, M2, F1, F1_OFF, F1_ALL and F2; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2833,6 +2854,43 @@ def with_fronts(torch, drv, centres=FRONTS):
     lvl.initial_state = fronts
 
 
+def with_lambda_bump(torch, drv):
+    """Seed the RunDriver's initial lambda with the bump of
+    tests/test_amr.py:779: 1 + 0.004 exp(-(x^2 + z^2) / 0.1) over the
+    cells' indices mapped onto [-1, 1]."""
+    lvl = drv.level
+    plain = lvl.initial_state
+
+    def bumped():
+        s = plain()
+        nz, nx = s.lam.shape[0], s.lam.shape[-1]
+        kw = dict(dtype=s.lam.dtype, device=s.lam.device)
+        xs = torch.linspace(-1, 1, nx, **kw)
+        zs = torch.linspace(-1, 1, nz, **kw)
+        bump = torch.exp(-(xs[None, :] ** 2 + zs[:, None] ** 2) / 0.1)
+        return dataclasses.replace(s, lam=(1.0 + 0.004 * bump).expand_as(
+            s.lam).clone())
+
+    lvl.initial_state = bumped
+
+
+def with_vd_cold_start(torch, drv):
+    """with_lambda_bump, and every VD pass started from e_lambda = 0 on
+    every level instead of the last pass's potentials: a fault that F0's
+    e_lambda limit must catch."""
+    with_lambda_bump(torch, drv)
+    h = drv.hierarchy
+    plain = h._vd_correction
+    zero = lambda s: dataclasses.replace(
+        s, e_lambda=torch.zeros_like(s.e_lambda))
+
+    def cold(s0, fine_states, args, dt):
+        fine_states[:] = [zero(f) for f in fine_states]
+        return plain(zero(s0), fine_states, args, dt)
+
+    h._vd_correction = cold
+
+
 def patch_avgdown_err(torch, h, s0, fines, origins, weights,
                       parent_sels=None):
     """max over every refined level's active patches, over b and u, of
@@ -2865,32 +2923,40 @@ def patch_avgdown_err(torch, h, s0, fines, origins, weights,
     return torch.stack(errs).max()
 
 
-def amr_deck_run(torch, deck, device, counters, fronts=False):
+def amr_deck_run(torch, deck, device, counters, init=None, extra=None):
     """A deck through RunDriver with the counts set to 0 just before its
-    run.  Every coarse step (each call of the hierarchy's advance with its
-    subcycling factors) records, on the device, the average-down
+    run; init(torch, drv), where given, adjusts the RunDriver before it
+    runs (with_fronts, with_lambda_bump).  Every coarse step (each call
+    of the hierarchy's advance with its subcycling factors) records, on the device, the average-down
     difference, max|b|, the sync solve's relres, min and max b on both
     levels and whether every field is finite, and on the host its
-    launches and host reads.  Returns a dict."""
+    launches and host reads.  extra(h, s0, fine, origins) -> a list of
+    0-d tensors is recorded on the first step's input and after every
+    step (run["extra"]: the first row, then one per step).  Returns a
+    dict."""
     import numpy as np
     from somar_tpu_torch.driver import RunDriver, level_log
     from somar_tpu_torch.solvers.host_reads import read_scalars
     from somar_tpu_torch.utils.timers import timer
     timer.reset()
     drv = RunDriver(context(deck), out_dir=os.getcwd(), device=device)
-    if fronts:
-        with_fronts(torch, drv)
+    if init is not None:
+        init(torch, drv)
     h = drv.hierarchy
     plain_advance = h.advance
-    rows, launches, reads, levels, placed = [], [], [], {}, []
+    rows, launches, reads, levels, placed, extras = [], [], [], {}, [], []
 
     def advance(*a, **kw):
         if "nt_mults" not in kw:                 # initialize_pressure
             return plain_advance(*a, **kw)
         if not placed:
             placed.append(level_log(h))
+        if extra is not None and not extras:
+            extras.append(torch.stack(extra(h, a[0], a[1], a[2])))
         n0, r0 = read_counts(counters), read_scalars.count
         s0, fine = plain_advance(*a, **kw)
+        if extra is not None:
+            extras.append(torch.stack(extra(h, s0, fine, a[2])))
         n1, r1 = read_counts(counters), read_scalars.count
         launches.append({k: n1[k] - n0[k] for k in n1})
         reads.append(r1 - r0)
@@ -2917,6 +2983,9 @@ def amr_deck_run(torch, deck, device, counters, fronts=False):
     drv.scheduler.schedule(lambda *_: marks.append(read_scalars.count),
                            step_interval=1)
     if device != "cpu":
+        # the last run's hierarchy (reference cycles) freed first, so that
+        # the peak is this run's
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
@@ -2934,6 +3003,7 @@ def amr_deck_run(torch, deck, device, counters, fronts=False):
                 reads_step=((marks[-1] - marks[0]) / (len(marks) - 1)
                             if len(marks) > 1 else float("nan")),
                 rows=torch.stack(rows).tolist(), levels=levels,
+                extra=torch.stack(extras).tolist() if extras else None,
                 placed=placed[0],
                 peak=(torch.cuda.max_memory_allocated() if device != "cpu"
                       else 0),
@@ -2958,19 +3028,22 @@ def nested_log(run):
         (r["step"], pick(r["levels"])) for r in run["drv"].regrids]
 
 
-def amr_pair_diffs(a, b):
+def amr_pair_diffs(a, b, fields=None, gauge=None):
     """{level.field: max|a - b| / max|b|} over the base and every refined
-    level of two runs ("patches" the first, "level<l>" the deeper), the
-    potentials gauge-free (per patch)."""
+    level of two runs ("patches" the first, "level<l>" the deeper), of
+    `fields` (AMR_FIELDS), those in `gauge` (GAUGE_FIELDS, the
+    potentials) gauge-free (per patch)."""
+    fields = AMR_FIELDS if fields is None else fields
+    gauge = GAUGE_FIELDS if gauge is None else gauge
     rel = {}
     pairs = [("base", a["state"], b["state"], 1)] + [
         ("patches" if lev == 0 else f"level{lev + 1}", x, y, c.K)
         for lev, (x, y, c) in enumerate(zip(a["fines"], b["fines"],
                                             a["h"].couplings))]
     for lvl, x, y, K in pairs:
-        for f in AMR_FIELDS:
+        for f in fields:
             u, v = getattr(x, f), getattr(y, f).to(getattr(x, f).device)
-            if f in GAUGE_FIELDS:
+            if f in gauge:
                 k = u.shape[0] if K > 1 else None
                 rel[f"{lvl}.{f}"] = max(gauge_free_diff(u[i], v[i])
                                         for i in range(k)) if k else \
@@ -3028,9 +3101,9 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
     mid-run checkpoint, equal to the uninterrupted one (DRIVER_RTOL).
     Returns the card's launches of both decks."""
     total = {}
-    for label, deck, fronts in (("AMR_CFG", R0_DECK, False),
-                                ("subcycled", R0_SUBCYCLED, False),
-                                ("two fronts", R0_TWO_FRONTS, True)):
+    for label, deck, init in (("AMR_CFG", R0_DECK, None),
+                              ("subcycled", R0_SUBCYCLED, None),
+                              ("two fronts", R0_TWO_FRONTS, with_fronts)):
         runs = {}
         with tempfile.TemporaryDirectory(prefix="chip_smoke_r0_") as out:
             cwd = os.getcwd()
@@ -3038,11 +3111,11 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
             try:
                 for dev in ("cpu", device):
                     runs[dev] = amr_deck_run(torch, deck, dev, counters,
-                                             fronts)
+                                             init)
                 card = runs[device]
                 resumed = amr_deck_run(
                     torch, deck + "amr.restart_file = chkpt_000003.hdf5\n",
-                    device, counters, fronts)
+                    device, counters, init)
             finally:
                 os.chdir(cwd)
         if files is not None:
@@ -3080,7 +3153,7 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
         if not (res <= DRIVER_RTOL and resumed["steps"] == card["steps"]
                 and regrid_log(resumed)[-1][1:] == log[-1][1:]):
             raise PhaseError(f"R0 {label}: the resumed run differs")
-        if fronts and not (c.K == 2 and all(w == 1.0 for w in c.weights)):
+        if init and not (c.K == 2 and all(w == 1.0 for w in c.weights)):
             raise PhaseError(f"R0 {label}: K = {c.K} weights {c.weights}, "
                              "not two active patches")
         if deck is R0_SUBCYCLED and card["drv"].nt_mults[0] != (2,):
@@ -3090,9 +3163,10 @@ def amr_deck_card_vs_cpu(torch, device, counters, files):
     return total
 
 
-def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
+def amr_deck_phase(torch, device, counters, smi, label, deck, init=None,
                    want_k=None, unbounded=(),
-                   path=("ctu_corr3",) + AMR_PATH_2D, standins=STANDINS):
+                   path=("ctu_corr3",) + AMR_PATH_2D, standins=STANDINS,
+                   extra=None):
     """R1 / R2: a full-width AMR deck through RunDriver on the card with
     the counts set to 0 just before; prints ms per coarse step (plain and
     regrid steps apart), seconds per regrid, K, origins and tag coverage
@@ -3103,7 +3177,7 @@ def amr_deck_phase(torch, device, counters, smi, label, deck, fronts=False,
         cwd = os.getcwd()
         os.chdir(out)
         try:
-            run = amr_deck_run(torch, deck, device, counters, fronts)
+            run = amr_deck_run(torch, deck, device, counters, init, extra)
         finally:
             os.chdir(cwd)
     drv, h = run["drv"], run["h"]
@@ -3176,11 +3250,11 @@ def amr_deck_phases(torch, ck, gk, sgk, counters, device, smi, worst,
     t0 = time.perf_counter()
     out["r0"] = (amr_deck_card_vs_cpu(torch, device, counters, files), {})
     say(f"phase R0: {time.perf_counter() - t0:.1f} s")
-    for key, deck, fronts, want_k in (("r1", R1_DECK, False, None),
-                                      ("r2", R2_DECK, True, 2)):
+    for key, deck, init, want_k in (("r1", R1_DECK, None, None),
+                                    ("r2", R2_DECK, with_fronts, 2)):
         t0 = time.perf_counter()
         run = amr_deck_phase(torch, device, counters, smi, key.upper(), deck,
-                             fronts, want_k)
+                             init, want_k)
         if files is not None:
             files.trees.clear()
         levels = {"base": run["h"].level0}
@@ -3219,13 +3293,16 @@ N0_TWO_CHAINS = R0_TWO_FRONTS.replace(
 #: N1: R1's deck with a second refined level at ratio (4,1,2) (x by 4, z
 #: by 2, the DEM_2D-style second ratio in 3D; nt 4 at both levels, so 16
 #: level-2 substeps per coarse step), both levels regridded every 5
-#: steps, 10 coarse steps, files at step 10; amr.grid_buffer_size at its
-#: default 1
+#: steps, 6 coarse steps (10 until slice 11c's phases came, which the
+#: script's time limit needs), files at step 5; amr.grid_buffer_size at
+#: its default 1
 N1_DECK = R1_DECK.replace("amr.maxlevel = 1", "amr.maxlevel = 2").replace(
     "amr.refratio_lev0 = 4 1 1",
     "amr.refratio_lev0 = 4 1 1\namr.refratio_lev1 = 4 1 2").replace(
     "amr.regrid_intervals = 5", "amr.regrid_intervals = 5 5").replace(
-    "amr.maxsteps = 20", "amr.maxsteps = 10")
+    "amr.maxsteps = 20", "amr.maxsteps = 6").replace(
+    "plot.plot_interval = 10", "plot.plot_interval = 5").replace(
+    "plot.checkpoint_interval = 10", "plot.checkpoint_interval = 5")
 #: the levels of N1 held to finiteness, not to B_BOUNDS: at R1's
 #: CFL-limited dts the JAX package's nested level grows a grid-scale
 #: overshoot of b at the lock's interface (ROADMAP C.25), so N1 prints
@@ -3246,8 +3323,8 @@ def nested_card_vs_cpu(torch, device, counters, files):
     resumed from its mid-run checkpoint, equal to the uninterrupted one
     (DRIVER_RTOL).  Returns the card's launches of both decks."""
     total = {}
-    for label, deck, fronts in (("three levels", N0_DECK, False),
-                                ("two chains", N0_TWO_CHAINS, True)):
+    for label, deck, init in (("three levels", N0_DECK, None),
+                              ("two chains", N0_TWO_CHAINS, with_fronts)):
         runs = {}
         with tempfile.TemporaryDirectory(prefix="chip_smoke_n0_") as out:
             cwd = os.getcwd()
@@ -3255,13 +3332,13 @@ def nested_card_vs_cpu(torch, device, counters, files):
             try:
                 t0 = time.perf_counter()
                 runs["cpu"] = amr_deck_run(torch, deck, "cpu", counters,
-                                           fronts)
+                                           init)
                 t_cpu = time.perf_counter() - t0
                 card = runs[device] = amr_deck_run(torch, deck, device,
-                                                   counters, fronts)
+                                                   counters, init)
                 resumed = amr_deck_run(
                     torch, deck + "amr.restart_file = chkpt_000003.hdf5\n",
-                    device, counters, fronts)
+                    device, counters, init)
             finally:
                 os.chdir(cwd)
         if files is not None:
@@ -3306,7 +3383,7 @@ def nested_card_vs_cpu(torch, device, counters, files):
         if len(h.couplings) != 2:
             raise PhaseError(f"N0 {label}: {len(h.couplings)} refined "
                              "levels, not 2")
-        if fronts:
+        if init:
             for step, levels in log:
                 (k1, _, w1, _), (k2, _, w2, ps2) = levels
                 chains = sorted({p for p, w in zip(ps2, w2) if w > 0})
@@ -3391,10 +3468,13 @@ M0_LEDGE = R0_DECK.replace("amr.length = 15.0 2.0", "amr.length = 8.0 1.0") \
     .replace("amr.refratio_lev0 = 4 1", "amr.refratio_lev0 = 2 2") \
     + LEDGE_KEYS.replace("ledgeMapHl = 1", "ledgeMapHl = 0.5")
 #: M0's second deck: the same at amr.maxlevel = 2, ratios (4,1) then (4,2)
-#: (the DEM_2D style, tests/test_amr.py:167-169)
+#: (the DEM_2D style, tests/test_amr.py:167-169), 4 coarse steps (6 until
+#: slice 11c's phases came, which the script's time limit needs; the
+#: regrids of steps 2 and 4 and the resume from step 3 stay)
 M0_NESTED = M0_LEDGE.replace("amr.maxlevel = 1", "amr.maxlevel = 2") \
     .replace("amr.refratio_lev0 = 2 2",
-             "amr.refratio_lev0 = 4 1\namr.refratio_lev1 = 4 2")
+             "amr.refratio_lev0 = 4 1\namr.refratio_lev1 = 4 2") \
+    .replace("amr.maxsteps = 6", "amr.maxsteps = 4")
 #: M0's third deck: the TwistedMap two fronts of tests/test_amr.py:296-320
 #: (perturbations 0.2 0.02) on R0_TWO_FRONTS, K pinned at 2, no refluxing
 M0_TWO_FRONTS = R0_TWO_FRONTS + """geometry.coordMap = 1
@@ -3405,7 +3485,8 @@ plot.writeGeometry = 1
 #: M1: a 2D lock exchange on the Ledge map as an AMR deck (the stand-in
 #: for the absent LockExchange_Ledge2D deck): D1's physics and lengths in
 #: (x, z), a 1024x128 base at ratio (4,1), regrids every 5 steps, a
-#: CFL-limited dt, 10 coarse steps, files at step 10.  The first dt from
+#: CFL-limited dt, 5 coarse steps (10 until slice 11c's phases came),
+#: files at step 5.  The first dt from
 #: rest is init_dt_multiplier x the base's viscous limit (ROADMAP C.20):
 #: at 0.1 (0.048) the patch's substeps blow up at its CF side under the
 #: top wall, on a Cartesian base too (ROADMAP C.29), so it starts at 0.01
@@ -3414,7 +3495,10 @@ M1_DECK = D1_DECK.replace("amr.nx = 512 128 128", "amr.nx = 1024 128") \
     .replace("amr.length = 15 2 2", "amr.length = 15 2") \
     .replace("amr.nx_offset = -256 0 0", "amr.nx_offset = -512 0") \
     .replace("amr.isPeriodic = 0 1 0", "amr.isPeriodic = 0 0") \
-    .replace("amr.maxsteps = 20", "amr.maxsteps = 10") + """
+    .replace("amr.maxsteps = 20", "amr.maxsteps = 5") \
+    .replace("plot.plot_interval = 10", "plot.plot_interval = 5") \
+    .replace("plot.checkpoint_interval = 10",
+             "plot.checkpoint_interval = 5") + """
 amr.init_dt_multiplier = 0.01
 amr.maxlevel = 1
 amr.refratio_lev0 = 4 1
@@ -3426,12 +3510,16 @@ AMRMG.imax = 12
 """ + LEDGE_KEYS
 M1_BASE, M1_RATIO = (1024, 128), (4, 1)
 #: M2: R1's deck (a 128^3 base at ratio (4,1,1), patch ext 384x128x128) on
-#: the Ledge map extruded in y, 5 coarse steps, one regrid and its files
-#: at step 5
-M2_DECK = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 5") \
-    .replace("plot.plot_interval = 10", "plot.plot_interval = 5") \
+#: the Ledge map extruded in y, 2 coarse steps (5 until slice 11c's phases
+#: came), one regrid and its files at step 2, one initial pressure
+#: iteration (D1: 2)
+M2_DECK = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 2") \
+    .replace("amr.regrid_intervals = 5", "amr.regrid_intervals = 2") \
+    .replace("plot.plot_interval = 10", "plot.plot_interval = 2") \
     .replace("plot.checkpoint_interval = 10",
-             "plot.checkpoint_interval = 5") + LEDGE_KEYS
+             "plot.checkpoint_interval = 2") \
+    .replace("projection.initial_pressure_iters = 2",
+             "projection.initial_pressure_iters = 1") + LEDGE_KEYS
 #: the kernels of a 2D mapped AMR deck's path: the advection on every
 #: level and the probed-stencil residual of every solve (a mapped level
 #: runs no uniform multigrid level); `mapped_path` adds the probed-stencil
@@ -3467,7 +3555,7 @@ def slot_j_ranges(h):
              for lv in c.levels] for c in h.couplings]
 
 
-def cpu_deck_summary(deck, fronts, threads=4):
+def cpu_deck_summary(deck, init, threads=4):
     """amr_deck_run of `deck` on the CPU, in a worker process and a
     temporary directory of its own (with file_layer's files): what the
     card-against-CPU gates read of it (the final states, the placement and
@@ -3483,7 +3571,7 @@ def cpu_deck_summary(deck, fronts, threads=4):
         cwd = os.getcwd()
         os.chdir(out)
         try:
-            run = amr_deck_run(torch, deck, "cpu", (ck, gk, sgk), fronts)
+            run = amr_deck_run(torch, deck, "cpu", (ck, gk, sgk), init)
         finally:
             os.chdir(cwd)
     drv = run["drv"]
@@ -3506,23 +3594,23 @@ def mapped_card_vs_cpu(torch, device, counters, files):
     launches of the three decks."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    decks = (("ledge", M0_LEDGE, False, 1), ("nested", M0_NESTED, False, 2),
-             ("two fronts", M0_TWO_FRONTS, True, 1))
+    decks = (("ledge", M0_LEDGE, None, 1), ("nested", M0_NESTED, None, 2),
+             ("two fronts", M0_TWO_FRONTS, with_fronts, 1))
     total = {}
     # the CPU runs go on in one worker process while the card's run here
     with ProcessPoolExecutor(
             max_workers=1,
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        cpu_runs = {label: pool.submit(cpu_deck_summary, deck, fronts)
-                    for label, deck, fronts, _ in decks}
-        for label, deck, fronts, levels in decks:
+        cpu_runs = {label: pool.submit(cpu_deck_summary, deck, init)
+                    for label, deck, init, _ in decks}
+        for label, deck, init, levels in decks:
             total = mapped_deck_check(torch, device, counters, files, label,
-                                      deck, fronts, levels,
+                                      deck, init, levels,
                                       cpu_runs[label], total)
     return total
 
 
-def mapped_deck_check(torch, device, counters, files, label, deck, fronts,
+def mapped_deck_check(torch, device, counters, files, label, deck, init,
                       levels, cpu_future, total):
     """One M0 deck: its card run and resumed run here, against the CPU
     run of `cpu_future` (cpu_deck_summary).  Returns `total` with the card
@@ -3533,10 +3621,10 @@ def mapped_deck_check(torch, device, counters, files, label, deck, fronts,
         os.chdir(out)
         try:
             card = runs[device] = amr_deck_run(torch, deck, device,
-                                               counters, fronts)
+                                               counters, init)
             resumed = amr_deck_run(
                 torch, deck + "amr.restart_file = chkpt_000003.hdf5\n",
-                device, counters, fronts)
+                device, counters, init)
         finally:
             os.chdir(cwd)
     if files is not None:
@@ -3587,7 +3675,7 @@ def mapped_deck_check(torch, device, counters, files, label, deck, fronts,
     if not (h.is_mapped and len(h.couplings) == levels):
         raise PhaseError(f"M0 {label}: not {levels} mapped refined "
                          "levels")
-    if fronts:
+    if init:
         c = h.couplings[0]
         j0, j1 = (lv.geo.J for lv in c.levels)
         if not (c.K == 2 and list(c.weights) == [1.0, 1.0]
@@ -3675,7 +3763,7 @@ def mapped_phases(torch, ck, gk, sgk, counters, device, smi, worst, files):
         try:
             run = amr_deck_run(torch, M0_TWO_FRONTS.replace(
                 "amr.maxsteps = 6", "amr.maxsteps = 2"), device, counters,
-                True)
+                with_fronts)
         finally:
             os.chdir(cwd)
     if files is not None:
@@ -3687,6 +3775,394 @@ def mapped_phases(torch, ck, gk, sgk, counters, device, smi, worst, files):
         f"{json.dumps(plain)}")
     say(f"phase M3: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------------
+# phases 34-36: refluxing, the VD correction, RK3 patch levels and
+# post-regrid smoothing (slice 11c)
+# --------------------------------------------------------------------------
+#: the deck keys of slice 11c
+F_REFLUX = """amr.advective_momentum_reflux = 1
+amr.advective_scalar_reflux = 1
+amr.advective_lambda_reflux = 1
+"""
+F_IMPLICIT = """amr.implicit_scalar_reflux = 1
+amr.implicit_momentum_reflux = 1
+"""
+F_VD = """projection.applyVDCorrection = 1
+projection.etaLambda = 0.9
+"""
+F_SMOOTH = """amr.smooth_after_regrid = 1
+amr.postRegrid_smoothing_coeff = 1.0
+"""
+F_RK3 = "amr.updateScheme = 2\n"
+#: F0's decks, card against CPU, 4 coarse steps each (6 in their first
+#: runs; cut for the script's time limit, the regrids of steps 2 and 4 and
+#: the resume from step 3 stay): (label, deck, initial state (two fronts,
+#: a lambda bump, or the deck's own), refluxing, VD).  "vd bump" is
+#: tests/test_amr.py:779 as a deck: the VD correction alone, lambda seeded
+#: with a bump of 0.004 (without a source of lambda drift e_lambda stays
+#: 0), held to max|lambda - 1| < F0_LAMBDA_DRIFT on every level; with
+#: lambda refluxed too the drift grows (ROADMAP C.31), so the reflux decks
+#: with the VD correction are held to a filled, finite e_lambda
+F0_DECKS = tuple(
+    (label, deck.replace("amr.maxsteps = 6", "amr.maxsteps = 4"), init,
+     reflux, vd) for label, deck, init, reflux, vd in (
+        ("reflux+vd", R0_DECK + F_REFLUX + F_VD, None, True, True),
+        ("implicit", R0_DECK + F_REFLUX + F_IMPLICIT + F_VD, None, True,
+         True),
+        ("vd bump", R0_DECK + F_VD, with_lambda_bump, False, True),
+        ("two chains", N0_TWO_CHAINS + F_REFLUX, with_fronts, True, False),
+        ("mapped two fronts", M0_TWO_FRONTS + F_REFLUX, with_fronts, True,
+         False),
+        ("rk3", R0_DECK + F_RK3 + F_REFLUX, None, True, False),
+        ("smoothing", R0_DECK + F_SMOOTH, None, False, False)))
+#: the conservation gate's deck (tests/test_amr.py:365): R0_DECK inviscid,
+#: dt 0.02, 8 coarse steps; with refluxing the base's buoyancy integral
+#: drifts no more than without, F0_DRIFT_SLACK allowed
+F0_INVISCID = R0_DECK.replace("amr.viscosity = 0.0001", "amr.viscosity = 0.0") \
+    .replace("amr.scal_diffusion_coeffs = 0.0001",
+             "amr.scal_diffusion_coeffs = 0.0") \
+    .replace("amr.maxsteps = 6", "amr.maxsteps = 8") + "amr.fixed_dt = 0.02\n"
+F0_DRIFT_SLACK = 1e-4
+#: implicit against explicit refluxing (tests/test_amr.py:398): the base's
+#: b of the two decks within this
+F0_IMPLICIT_DIFF = 1e-4
+#: the VD correction keeps lambda near 1 (tests/test_amr.py:779)
+F0_LAMBDA_DRIFT = 0.016
+#: card against CPU, e_lambda (gauge-free) is held apart from the
+#: AMR_FIELDS (R0_RTOL): it is the potential of one composite pass whose
+#: rhs is lambda - 1, a difference of nearly equal float32 numbers (the
+#: lambda-bump deck's patch lambda differs by 1.5e-6 of max|lambda|
+#: between card and CPU, its e_lambda by 1.1e-3 of max|e_lambda|).  F0
+#: shows the limit catching a fault: the lambda-bump deck on the card
+#: with every VD pass started from e_lambda = 0 (with_vd_cold_start)
+#: against the sound CPU run (above 1 on the CPU against itself)
+F0_ELAMBDA_RTOL = 1e-2
+#: a refluxing level collects its momentum fluxes by re-upwinding the
+#: stashed traces in plain torch, as the JAX package's collect path does:
+#: no riemann_fluxdiv (K4) in a coarse step (the base level's single-level
+#: pressure initialization before the placement still launches it); RK3
+#: traces at dt = 0 without K4 either
+F_PATH_2D = tuple(k for k in AMR_PATH_2D if k != "riemann_fluxdiv")
+#: F1: R1's deck at full width (base 128^3, ratio (4,1,1), patch ext
+#: 384x128x128), 10 coarse steps, regrids every 5, files at step 10, at
+#: CFL 0.3, with velocity and buoyancy refluxed, implicit refluxing, the
+#: VD correction and post-regrid smoothing, held to every gate of R1;
+#: F1_OFF the same deck without any of them.  At R1's CFL 0.9 (dts up to
+#: 0.124) the refluxed b leaves B_BOUNDS at the interface, in the JAX
+#: package too (ROADMAP C.32); at 0.3 it stays inside.  Lambda is not
+#: refluxed here, so the VD correction's rhs stays near 0 and its solves
+#: run all the same
+F_CFL = ("amr.cfl = 0.9", "amr.cfl = 0.3")
+F_REFLUX_VB = F_REFLUX.replace("amr.advective_lambda_reflux = 1",
+                               "amr.advective_lambda_reflux = 0")
+F1_OFF = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 10") \
+    .replace(*F_CFL)
+F1_DECK = F1_OFF + F_REFLUX_VB + F_IMPLICIT + F_VD + F_SMOOTH
+#: F1_ALL: R1's deck as it stands (CFL 0.9), 10 coarse steps, with every
+#: feature of slice 11c on (lambda refluxed too): a run of a fault of the
+#: reference, held to finiteness only.  Lambda refluxing with the VD
+#: correction grows lambda's drift 2.5-4x a coarse step, b follows it and
+#: tags spread past the footprint, in the JAX package's RunDriver as in
+#: the port's to 7 digits (ROADMAP C.31; tests/torch_jax_lambda_drift.py)
+F1_ALL = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 10") \
+    + F_REFLUX + F_IMPLICIT + F_VD + F_SMOOTH
+#: F2: F1's deck (CFL 0.3) with RK3 and all three fields refluxed, 5
+#: coarse steps, files at step 5, held to every gate of R1
+F2_DECK = R1_DECK.replace("amr.maxsteps = 20", "amr.maxsteps = 5") \
+    .replace(*F_CFL) \
+    .replace("plot.plot_interval = 10", "plot.plot_interval = 5") \
+    .replace("plot.checkpoint_interval = 10",
+             "plot.checkpoint_interval = 5") + F_RK3 + F_REFLUX
+
+
+def f_extra(h, s0, fine, origins):
+    """The composite buoyancy mass (base uncovered cells and patch
+    interiors, each on its own volumes), then max|lambda - 1| of each
+    level, the base first (0-d tensors)."""
+    from somar_tpu_torch.ops.norms import composite_mapped_sum
+    fine = list(fine) if isinstance(fine, (list, tuple)) else [fine]
+    origins = (list(origins) if isinstance(origins, (list, tuple))
+               else [origins])
+    b = [s0.scalars[0]] + [f.scalars[:, 0] if c.K > 1 else f.scalars[0]
+                           for c, f in zip(h.couplings, fine)]
+    return [composite_mapped_sum(h, b, origins)] + [
+        (s.lam - 1.0).abs().max() for s in [s0] + fine]
+
+
+def vd_filled(torch, h, s0, fines):
+    """e_lambda finite and non-zero on the base and in every active
+    patch's interior."""
+    from somar_tpu_torch.amr.transfer import extract_patch
+    ok = bool(torch.isfinite(s0.e_lambda).all()) and bool(
+        (s0.e_lambda != 0).any())
+    for c, f in zip(h.couplings, fines):
+        for p, w in zip(c.unstack(f), c.patch_weights(c.weights)):
+            if w is not None and w == 0.0:
+                continue
+            e = extract_patch(p.e_lambda, c.int_start, c.int_shape)
+            ok = ok and bool(torch.isfinite(p.e_lambda).all()) and bool(
+                (e != 0).any())
+    return ok
+
+
+def feature_card_vs_cpu(torch, device, counters, files):
+    """F0: each deck of F0_DECKS through RunDriver on the CPU (in a worker
+    process alongside) and on the card: the same per-level K, origins,
+    weights, parent selections and nt_mults at the placement and after
+    every regrid, every field of every level within R0_RTOL (the
+    potentials gauge-free) and e_lambda within F0_ELAMBDA_RTOL, R0's
+    gates; on the card the run resumed
+    from its step-3 checkpoint equal to the uninterrupted one
+    (DRIVER_RTOL), e_lambda filled and lambda within F0_LAMBDA_DRIFT of 1
+    on every level of the VD decks, the implicit deck's base b within
+    F0_IMPLICIT_DIFF of the explicit one's, and every kernel of the
+    deck's path launched; the vd bump deck once more on the card with
+    every VD pass started cold (with_vd_cold_start), whose e_lambda must
+    read above F0_ELAMBDA_RTOL against the sound CPU run.  Then the
+    conservation gate on F0_INVISCID with and without refluxing.  Returns
+    the card's launches of the decks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    total, finals, sound_e = {}, {}, []
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {label: pool.submit(cpu_deck_summary, deck, init)
+                    for label, deck, init, _, _ in F0_DECKS}
+        for label, deck, init, reflux, vd in F0_DECKS:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_f0_") as out:
+                cwd = os.getcwd()
+                os.chdir(out)
+                try:
+                    card = amr_deck_run(torch, deck, device, counters,
+                                        init)
+                    resumed = amr_deck_run(
+                        torch, deck + "amr.restart_file = "
+                        "chkpt_000003.hdf5\n", device, counters, init)
+                finally:
+                    os.chdir(cwd)
+            if files is not None:
+                files.trees.clear()
+            cpu = cpu_runs[label].result()
+            for k, v in card["launches"].items():
+                total[k] = total.get(k, 0) + v
+            h = card["h"]
+            rel = amr_pair_diffs(card, cpu)
+            err = max(rel.values())
+            rel_e = amr_pair_diffs(card, cpu, ("e_lambda",), ("e_lambda",))
+            rel.update(rel_e)
+            if vd:
+                sound_e.append(max(rel_e.values()))
+            if init is with_lambda_bump:
+                bump = (deck, cpu)
+            res = max(max(field_diffs(x, y, AMR_FIELDS + ("e_lambda",))
+                          .values())
+                      for x, y in zip((resumed["state"],) + resumed["fines"],
+                                      (card["state"],) + card["fines"]))
+            log, cpu_log = nested_log(card), nested_log(cpu)
+            lam = [float((s.lam - 1.0).abs().max())
+                   for s in (card["state"],) + card["fines"]]
+            filled = vd_filled(torch, h, card["state"], card["fines"])
+            say(f"F0 {label} {h.grid0.nx} ratios {h.ratios}, reflux "
+                f"{h.reflux_fields} implicit {h.implicit_reflux} eta_lambda "
+                f"{h.eta_lambda} smoothing {h.regrid_smoothing_coeff} scheme "
+                f"{h.params.update_scheme}, {card['steps']} coarse steps on "
+                f"{device} ({card['seconds']:.2f} s) and on the CPU "
+                f"({cpu['seconds']:.2f} s): (step, per level (K, origins, "
+                f"weights, parent_sel)) {log} (CPU "
+                f"{'the same' if log == cpu_log else cpu_log}); nt_mults "
+                f"{card['drv'].nt_mults} (CPU {'the same' if card['drv'].nt_mults == cpu['drv'].nt_mults else cpu['drv'].nt_mults}); "
+                "card against CPU max|diff|/max|field| "
+                + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+                + f" (limit {R0_RTOL}, e_lambda {F0_ELAMBDA_RTOL}); resumed "
+                "from chkpt_000003 against "
+                f"the uninterrupted run {res:.3e} (limit {DRIVER_RTOL}); "
+                f"max|lambda - 1| per level {['%.3e' % x for x in lam]}; "
+                f"e_lambda filled on every level {filled}; sync relres per "
+                "step " + ",".join(f"{r[2]:.3e}" for r in card["rows"])
+                + f"; launches {json.dumps(card['launches'])}")
+            amr_gates(card, f"F0 {label}")
+            if log != cpu_log or card["drv"].nt_mults != cpu["drv"].nt_mults:
+                raise PhaseError(f"F0 {label}: the card placed or regridded "
+                                 "the patches otherwise than the CPU")
+            if not (err <= R0_RTOL
+                    and max(rel_e.values()) <= F0_ELAMBDA_RTOL):
+                raise PhaseError(f"F0 {label}: the card's run differs from "
+                                 "the CPU's")
+            if not (res <= DRIVER_RTOL and resumed["steps"] == card["steps"]
+                    and nested_log(resumed)[-1][1:] == log[-1][1:]):
+                raise PhaseError(f"F0 {label}: the resumed run differs")
+            if vd and not filled:
+                raise PhaseError(f"F0 {label}: e_lambda not filled")
+            if init is with_lambda_bump and not max(lam) < F0_LAMBDA_DRIFT:
+                raise PhaseError(f"F0 {label}: lambda drifted {lam}")
+            path = mapped_path(h) if h.is_mapped else AMR_PATH_2D
+            check_launched(card["launches"],
+                           [k for k in path if k in F_PATH_2D]
+                           if reflux else path, f"F0 {label}")
+            if reflux and card["per_step"]["riemann_fluxdiv"]:
+                raise PhaseError(f"F0 {label}: K4 launched in a refluxing "
+                                 "coarse step")
+            finals[label] = card["state"]
+            del card, resumed, cpu
+    bump_deck, bump_cpu = bump
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f0_") as out:
+        cwd = os.getcwd()
+        os.chdir(out)
+        try:
+            cold = amr_deck_run(torch, bump_deck, device, counters,
+                                with_vd_cold_start)
+        finally:
+            os.chdir(cwd)
+    if files is not None:
+        files.trees.clear()
+    fault = max(amr_pair_diffs(cold, bump_cpu, ("e_lambda",),
+                               ("e_lambda",)).values())
+    del cold, bump, bump_cpu
+    say(f"F0 e_lambda limit {F0_ELAMBDA_RTOL}: card against CPU on the VD "
+        f"decks {['%.3e' % x for x in sound_e]}; the vd bump deck on the "
+        f"card with every VD pass started from e_lambda = 0 against the "
+        f"sound CPU run {fault:.3e}")
+    if not fault > F0_ELAMBDA_RTOL:
+        raise PhaseError("F0: the e_lambda limit does not catch a VD pass "
+                         "started cold")
+    diff = float((finals["implicit"].scalars[0]
+                  - finals["reflux+vd"].scalars[0]).abs().max())
+    say(f"F0 implicit against explicit refluxing: max|b_implicit - "
+        f"b_explicit| on the base {diff:.3e} (limit {F0_IMPLICIT_DIFF})")
+    if not diff < F0_IMPLICIT_DIFF:
+        raise PhaseError("F0: implicit refluxing left the explicit one")
+    drifts = {}
+    for name, deck in (("off", F0_INVISCID), ("on", F0_INVISCID + F_REFLUX)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_f0_") as out:
+            cwd = os.getcwd()
+            os.chdir(out)
+            try:
+                run = amr_deck_run(torch, deck, device, counters,
+                                   extra=lambda h, s0, f, o:
+                                   [s0.scalars[0].double().sum()])
+            finally:
+                os.chdir(cwd)
+        if files is not None:
+            files.trees.clear()
+        amr_gates(run, f"F0 inviscid reflux {name}")
+        drifts[name] = abs(run["extra"][-1][0] - run["extra"][0][0])
+    say(f"F0 conservation (F0_INVISCID, 8 coarse steps at dt 0.02): "
+        f"|sum b(end) - sum b(start)| on the base with refluxing "
+        f"{drifts['on']:.6e}, without {drifts['off']:.6e} (gate: with <= "
+        f"without + {F0_DRIFT_SLACK})")
+    if not drifts["on"] <= drifts["off"] + F0_DRIFT_SLACK:
+        raise PhaseError("F0: refluxing conserved buoyancy worse")
+    return total
+
+
+def feature_deck_summary(label, run):
+    """F1/F2's figures beyond amr_deck_phase's: the composite buoyancy
+    mass drift and max|lambda - 1| per level at the end."""
+    ex = run["extra"]
+    drift = abs(ex[-1][0] - ex[0][0])
+    lam = ex[-1][1:]
+    say(f"{label}: composite buoyancy mass {ex[0][0]:.9e} -> "
+        f"{ex[-1][0]:.9e} (drift {drift:.3e}, relative "
+        f"{drift / max(abs(ex[0][0]), 1e-30):.3e}); max|lambda - 1| per "
+        f"level at the end {['%.3e' % x for x in lam]}, over the run "
+        f"{['%.3e' % max(r[1 + i] for r in ex) for i in range(len(lam))]}")
+    return drift, max(lam)
+
+
+def feature_phases(torch, counters, device, smi, files):
+    """F0, F1 and F2, each printing its seconds.  Returns {phase:
+    (launches, launches per coarse step)}."""
+    out = {}
+    t0 = time.perf_counter()
+    out["f0"] = (feature_card_vs_cpu(torch, device, counters, files), {})
+    say(f"phase F0: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f1 = {}
+    path3 = ("ctu_corr3",) + F_PATH_2D
+    for key, deck, path in (("f1", F1_DECK, path3),
+                            ("f1_off", F1_OFF, ("ctu_corr3",) + AMR_PATH_2D)):
+        run = amr_deck_phase(torch, device, counters, smi, key.upper(), deck,
+                             path=path, extra=f_extra)
+        if files is not None:
+            files.trees.clear()
+        f1[key] = feature_deck_summary(key.upper(), run) + (
+            ms_of(plain_step_seconds(run)),)
+        out[key] = (run["launches"], run["per_step"])
+        if key == "f1" and run["per_step"]["riemann_fluxdiv"]:
+            raise PhaseError("F1: K4 launched in a refluxing coarse step")
+        del run
+    say(f"F1 against F1_OFF: ms per plain coarse step {f1['f1'][2]:.3f} "
+        f"against {f1['f1_off'][2]:.3f} "
+        f"({f1['f1'][2] / f1['f1_off'][2]:.3f}x); composite buoyancy mass "
+        f"drift {f1['f1'][0]:.3e} with refluxing, {f1['f1_off'][0]:.3e} "
+        f"without; max|lambda - 1| at the end {f1['f1'][1]:.3e} with the VD "
+        f"correction, {f1['f1_off'][1]:.3e} without")
+    out["f1_all"] = fault_reference_run(torch, device, counters, smi,
+                                        "F1_ALL", F1_ALL, path3)
+    if files is not None:
+        files.trees.clear()
+    say(f"phase F1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run = amr_deck_phase(torch, device, counters, smi, "F2", F2_DECK,
+                         path=("ctu_corr3",) + F_PATH_2D, extra=f_extra)
+    if files is not None:
+        files.trees.clear()
+    feature_deck_summary("F2", run)
+    if run["per_step"]["riemann_fluxdiv"]:
+        raise PhaseError("F2: K4 launched in an RK3 coarse step")
+    out["f2"] = (run["launches"], run["per_step"])
+    del run
+    say(f"phase F2: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def plain_step_seconds(run):
+    """The seconds of a deck run's coarse steps that did not regrid."""
+    drv = run["drv"]
+    regrid_steps = {r["step"] for r in drv.regrids}
+    return [t for i, t in enumerate(drv.step_seconds, 1)
+            if i not in regrid_steps]
+
+
+def fault_reference_run(torch, device, counters, smi, label, deck, path):
+    """A full-width deck that the reference's own numerics take out of
+    R1's gates (ROADMAP C.31), through RunDriver on the card with the
+    counts set to 0 just before: held to finite fields on every level and
+    every kernel of `path` launched; prints ms per plain coarse step, b
+    per level, tag coverage at the placement and every regrid, and
+    max|lambda - 1| per level after every step.  Returns (launches,
+    launches per coarse step)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f_") as out:
+        cwd = os.getcwd()
+        os.chdir(out)
+        try:
+            run = amr_deck_run(torch, deck, device, counters, extra=f_extra)
+        finally:
+            os.chdir(cwd)
+    drv = run["drv"]
+    drops = [[x["tag_coverage"] for x in info] for info in
+             [run["placed"]] + [r["levels"] for r in drv.regrids]]
+    say(f"{label} (a fault of the reference, ROADMAP C.31; held to "
+        f"finiteness) base {run['h'].grid0.nx}: {run['steps']} coarse steps "
+        f"in {run['seconds']:.2f} s; ms per plain coarse step median "
+        f"{ms_of(plain_step_seconds(run)):.3f}; dts "
+        f"{['%.5g' % d for d in drv.dts]}; b range per level "
+        f"{[[round(x, 4) for x in r] for r in level_b_ranges(run)]}; tag "
+        f"coverage (dropped, tagged) per level at the placement and every "
+        f"regrid {drops}; max|lambda - 1| per level after each step "
+        f"{[['%.3e' % x for x in r[1:]] for r in run['extra'][1:]]}; "
+        f"peak_mem_bytes {run['peak']}; launches per coarse step "
+        f"{json.dumps(run['per_step'])} on {smi}")
+    feature_deck_summary(label, run)
+    if not all(r[5] == 1.0 for r in run["rows"]):
+        raise PhaseError(f"{label}: non-finite fields")
+    check_launched(run["launches"], path, label)
+    if run["per_step"]["riemann_fluxdiv"]:
+        raise PhaseError(f"{label}: K4 launched in a refluxing coarse step")
+    return run["launches"], run["per_step"]
 
 
 def json_finite(x):
@@ -3796,6 +4272,7 @@ def main() -> int:
                           files)
     amr_m = mapped_phases(torch, ck, gk, sgk, counters, device, smi, errs,
                           files)
+    amr_f = feature_phases(torch, counters, device, smi, files)
 
     k6_levels = {}
     for shape, (ms, plain, dev) in k6_times.items():
@@ -3880,7 +4357,16 @@ def main() -> int:
             launches_m1=amr_m["m1"][0][name],
             launches_per_m1_coarse_step=amr_m["m1"][1][name],
             launches_m2=amr_m["m2"][0][name],
-            launches_per_m2_coarse_step=amr_m["m2"][1][name])
+            launches_per_m2_coarse_step=amr_m["m2"][1][name],
+            launches_f0=amr_f["f0"][0][name],
+            launches_f1=amr_f["f1"][0][name],
+            launches_per_f1_coarse_step=amr_f["f1"][1][name],
+            launches_f1_off=amr_f["f1_off"][0][name],
+            launches_per_f1_off_coarse_step=amr_f["f1_off"][1][name],
+            launches_f1_all=amr_f["f1_all"][0][name],
+            launches_per_f1_all_coarse_step=amr_f["f1_all"][1][name],
+            launches_f2=amr_f["f2"][0][name],
+            launches_per_f2_coarse_step=amr_f["f2"][1][name])
         if source == STENCIL_SOURCE:
             entry_["mapped_patches"] = {
                 label: dict(K=K, ms=t[name][0], plain_ms=t[name][1],

@@ -23,7 +23,8 @@ child of its own masked, the cells next to the interfaces
 reflux-corrected, each patch's max-norm times its weight.  Each patch
 solves with its own level's projector solver (spectral, multigrid,
 BiCGStab or leptic; on a mapped base each slot's own metric) under the
-solve's `purpose` ("sync").
+solve's `purpose`: "sync" for the sync and initial projections, "vd" for
+the VD correction (the base level's multigrid then takes NSParams.mg_vd).
 """
 
 from __future__ import annotations
@@ -82,13 +83,16 @@ class AMRCompositeSolver:
         return self._residual(self._as_lists(phis), self._as_lists(rhss),
                               self._args(origins, weights, parent_sels))
 
-    def solve(self, rhss, origins, weights=None, parent_sels=None):
-        """Composite solve from zero.  rhss: [base rhs, each refined
-        level's rhs (K-stacked at K > 1)]; origins, weights and
-        parent_sels per refined level.  Returns (phis in the same form,
-        (passes, final relative composite residual as a 0-d tensor))."""
+    def solve(self, rhss, origins, weights=None, parent_sels=None,
+              phis0=None):
+        """Composite solve from phis0 (zero when None).  rhss: [base rhs,
+        each refined level's rhs (K-stacked at K > 1)], phis0 the same;
+        origins, weights and parent_sels per refined level.  Returns (phis
+        in the same form, (passes, final composite residual relative to
+        the starting one, as a 0-d tensor))."""
         phis, info = self.solve_patches(
-            self._as_lists(rhss), self._args(origins, weights, parent_sels))
+            self._as_lists(rhss), self._args(origins, weights, parent_sels),
+            phis0=None if phis0 is None else self._as_lists(phis0))
         return [phis[0]] + [torch.stack(p) if c.K > 1 else p[0]
                             for c, p in zip(self.h.couplings,
                                             phis[1:])], info
@@ -205,15 +209,18 @@ class AMRCompositeSolver:
                                        o, out[p], +1.0, w)
         return out if lev > 0 else out[0]
 
-    def solve_patches(self, rhss, args):
-        """Composite solve from zero on per-patch lists: rhss = [base
-        rhs, per refined level [patch rhs ...]].  Returns (phis in the
-        same form, (passes, relres))."""
+    def solve_patches(self, rhss, args, phis0=None):
+        """Composite solve on per-patch lists from phis0 (zero when None):
+        rhss = [base rhs, per refined level [patch rhs ...]], phis0 the
+        same.  Returns (phis in the same form, (passes, relres))."""
         h = self.h
         p = self.params
         nc = len(h.couplings)
-        phis = [torch.zeros_like(rhss[0])] + [
-            [torch.zeros_like(r) for r in rl] for rl in rhss[1:]]
+        if phis0 is None:
+            phis = [torch.zeros_like(rhss[0])] + [
+                [torch.zeros_like(r) for r in rl] for rl in rhss[1:]]
+        else:
+            phis = [phis0[0]] + [list(pl) for pl in phis0[1:]]
 
         def one_pass(phis):
             rings = []

@@ -94,14 +94,23 @@ class PatchFluxRegister:
         lo_face = (int(origin_f[self.grid0.axis(d)]) + h.halo) // h.ratio[d]
         return lo_face, lo_face + h.interior_nx[d] // h.ratio[d]
 
-    def _window(self, ax, idx, start, plane_shape):
-        """Index of the (1-thick along ax) window at idx x start."""
+    def _window(self, ax, idx, start, plane_shape, shape):
+        """Index of the (1-thick along ax) window at idx x start in an
+        array of `shape`, with the JAX package's dynamic_slice and
+        dynamic_update_slice index rule: a negative start counts from the
+        end of its axis, and every start is clamped so that the window
+        fits.  Placement keeps every window inside (the donor slab needs
+        a parent cell outside the interface); only a patch whose interface
+        is a wall at a ratio above the halo reaches the rule (ROADMAP
+        C.30)."""
         sl, k = [], 0
         for a in range(self.grid0.ndim):
-            if a == ax:
-                sl.append(slice(idx, idx + 1))
-            else:
-                sl.append(slice(start[k], start[k] + plane_shape[k]))
+            n = 1 if a == ax else plane_shape[k]
+            lo = idx if a == ax else start[k]
+            lo = lo + shape[a] if lo < 0 else lo
+            lo = min(max(lo, 0), shape[a] - n)
+            sl.append(slice(lo, lo + n))
+            if a != ax:
                 k += 1
         return tuple(sl)
 
@@ -116,10 +125,10 @@ class PatchFluxRegister:
             flux = coarse_fluxes[d]
             rlo, rhi = out[d]
             out[d] = (
-                rlo - flux[self._window(ax, lo_face, start, shape)]
-                .squeeze(ax),
-                rhi - flux[self._window(ax, hi_face, start, shape)]
-                .squeeze(ax))
+                rlo - flux[self._window(ax, lo_face, start, shape,
+                                        flux.shape)].squeeze(ax),
+                rhi - flux[self._window(ax, hi_face, start, shape,
+                                        flux.shape)].squeeze(ax))
         return out
 
     def reflux(self, coarse_cc, reg, origin_f, dt, geo0=None):
@@ -141,7 +150,7 @@ class PatchFluxRegister:
             rlo, rhi = reg[d]
             for cell, plane, sign in ((lo_face - 1, rlo, -1.0),
                                       (hi_face, rhi, 1.0)):
-                win = self._window(ax, cell, start, plane.shape)
+                win = self._window(ax, cell, start, plane.shape, out.shape)
                 corr = sign * (dt / dx) * plane.unsqueeze(ax)
                 if Jinv is not None:
                     corr = corr * Jinv[win]

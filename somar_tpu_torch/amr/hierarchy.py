@@ -45,9 +45,21 @@ same-shape patches each, subcycled (PyTorch port of
     on their own levels, average down weighted by their own J, and the
     composite solve applies every patch's own operator.
 
-What the JAX package has beyond this (refluxing, the VD correction,
-post-regrid smoothing, RK3 with CF rings, sharded steps) raises
-NotImplementedError naming slice 11 of the port.
+  * Refluxing (`reflux`): every level collects the advective interface
+    fluxes of its step; each patch accumulates its own on every substep
+    in a flux register (amr/flux_register.py), closes it with its parent
+    patch's after the average-down and corrects the parent cells next to
+    its interface (explicitly, or with implicit_reflux through the parent
+    level's heat solver).  The VD correction (eta_lambda > 0): after the
+    sync, one composite solve (purpose "vd") of
+    L e = eta_lambda (lambda - 1) / dt sets every level's e_lambda, whose
+    gradient the next step adds to the advecting velocities.  Post-regrid
+    smoothing (regrid_smoothing_coeff > 0) applies (I - mu L) before the
+    data moves and solves it after; as in the JAX package it is off on a
+    mapped base and when nu and every kappa are 0.  RK3 patch levels take
+    the CF rings in every stage.
+
+Sharded hierarchy steps (`attach_mesh`) come with ROADMAP A.7.
 """
 
 from __future__ import annotations
@@ -61,6 +73,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from somar_tpu_torch.amr.composite import AMRCompositeSolver, CompositeParams
+from somar_tpu_torch.amr.flux_register import PatchFluxRegister
 from somar_tpu_torch.amr.tagging import (
     TagParams, compute_tags, patch_origin_from_tags, patch_origins_from_tags,
     tag_coverage)
@@ -79,14 +93,6 @@ from somar_tpu_torch.projection.projector import LevelProjector, pressure_bcs
 from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.parabolic import make_heat_solver
 from somar_tpu_torch.solvers.poisson_op import PoissonOp
-
-#: what a feature outside the port's AMR so far says when it raises
-SLICE11 = "slice 11 of the port's AMR (ROADMAP A.5)"
-
-
-def _slice11(what: str):
-    return NotImplementedError(f"{what} is {SLICE11}")
-
 
 def tree_index(s: NSState, k: int) -> NSState:
     """Patch k of a K-stacked state (every field, time included)."""
@@ -247,8 +253,13 @@ class PatchCoupling:
                  max_grid_size: int = 0, patch_frac: float = 0.5,
                  num_patches: int = 1,
                  parent_halo_axes: Optional[Tuple[int, ...]] = None,
-                 nest_buffer: int = 0):
+                 nest_buffer: int = 0, use_vd_correction: bool = False):
         ndim = parent_grid.ndim
+        #: every slot level adds grad e_lambda to its advecting velocity
+        #: (the hierarchy's VD correction), rebuilt slots included
+        self.use_vd_correction = bool(use_vd_correction)
+        #: the register of the refluxed fields (set by the hierarchy)
+        self.flux_register = None
         self.parent_grid = parent_grid
         self.parent_halo_axes = ((0,) * ndim if parent_halo_axes is None
                                  else tuple(int(h)
@@ -342,8 +353,10 @@ class PatchCoupling:
         """The patch level on geometry `geo` with the problem fields `aux`
         ({"nsq_cc", "sponge_ramp", "sponge_targets"}; None: derived from
         geo)."""
-        return PatchNSLevel(geo, self.problem, self.params, self.cf_dirs,
-                            aux_fields=aux)
+        lvl = PatchNSLevel(geo, self.problem, self.params, self.cf_dirs,
+                           aux_fields=aux)
+        lvl.use_vd_correction = self.use_vd_correction
+        return lvl
 
     def build_patch_bundle(self, global_origin_f, domain_grid: Grid):
         """The map's metric at a patch's physical position (its global
@@ -751,9 +764,13 @@ class AMRHierarchy:
 
     The arguments are the JAX package's: `ratios` has one (maybe
     anisotropic) ratio per refined level (`ratio` alone builds one
-    refined level); those that select a feature outside the port so far
-    (reflux, implicit reflux, eta_lambda > 0, post-regrid smoothing) raise
-    NotImplementedError.  num_patches: an int K is the finest level's
+    refined level).  reflux: the advective fluxes refluxed at every CF
+    interface, any of "vel", "scalars", "lam" (True: all three);
+    implicit_reflux: a viscous / diffusive field's correction solves
+    (I - dt kappa L) corr = its reflux on the parent level; eta_lambda >
+    0: the VD correction; regrid_smoothing_coeff > 0: post-regrid
+    smoothing (off, as in the JAX package, on a mapped base and when nu
+    and every kappa are 0).  num_patches: an int K is the finest level's
     budget (1, the default, lets right-sizing double it; any other value
     pins it), a per-level sequence pins every level it names.
     Right-sizing doubles an unpinned K (1 -> 2 -> 4 ..., up to
@@ -791,14 +808,6 @@ class AMRHierarchy:
             ratios = [ratio]
         if len(ratios) < 1:
             raise ValueError("no refinement ratio")
-        if reflux:
-            raise _slice11(f"advective refluxing {tuple(reflux)}")
-        if implicit_reflux:
-            raise _slice11("implicit refluxing")
-        if eta_lambda > 0.0:
-            raise _slice11("the VD correction (eta_lambda > 0)")
-        if regrid_smoothing_coeff > 0.0:
-            raise _slice11("post-regrid smoothing")
         nlev = len(ratios)
         # an explicit per-level list pins every level it names; an int K
         # is the finest level's, pinned unless it is 1 (right-sizing may
@@ -814,6 +823,12 @@ class AMRHierarchy:
             pinned[-1] = int(num_patches) != 1
         self.ratios = [tuple(int(r) for r in rr) for rr in ratios]
         self.level0 = NSLevel(geo0, problem, params)
+        self.eta_lambda = float(eta_lambda)
+        self.level0.use_vd_correction = self.eta_lambda > 0.0
+        self.reflux_fields = (("vel", "scalars", "lam") if reflux is True
+                              else tuple(reflux))
+        self.implicit_reflux = bool(implicit_reflux)
+        self.regrid_smoothing_coeff = float(regrid_smoothing_coeff)
         self.grid0: Grid = geo0.grid
         self.problem = problem
         self.params = params
@@ -825,6 +840,8 @@ class AMRHierarchy:
         #: (passes, final relative composite residual: a 0-d tensor) of
         #: the last sync or initial projection's composite solve
         self.last_sync_info = None
+        #: the same of the last VD solve (eta_lambda > 0)
+        self.last_vd_info = None
         self._geo0 = geo0
         self._pinned_K = pinned
         self._per_level_K = per_K
@@ -866,8 +883,11 @@ class AMRHierarchy:
                               patch_frac=self._level_frac(lev),
                               num_patches=self._per_level_K[lev],
                               parent_halo_axes=parent_halo,
-                              nest_buffer=self._grid_buffer_size)
+                              nest_buffer=self._grid_buffer_size,
+                              use_vd_correction=self.eta_lambda > 0.0)
             c._parent, c._base_level = parent, self.level0
+            if self.reflux_fields:
+                c.flux_register = PatchFluxRegister(c)
             self.couplings.append(c)
             parent, parent_grid, parent_halo = c, c.ext_grid, c._halo_axes()
         c0 = self.couplings[0]
@@ -915,7 +935,9 @@ class AMRHierarchy:
         return tuple(out)
 
     def attach_mesh(self, mesh):
-        raise _slice11("attach_mesh (sharded hierarchy steps)")
+        raise NotImplementedError(
+            "attach_mesh (sharded hierarchy steps) comes with the port of "
+            "parallel/ (ROADMAP A.7)")
 
     @property
     def is_mapped(self) -> bool:
@@ -1020,7 +1042,7 @@ class AMRHierarchy:
 
     # ------------------------------------------------------------- advance
     def _advance_recursive(self, lev: int, pars_old, pars_new, fine_states,
-                           args, dt: float, nt_mults=None):
+                           args, dt: float, nt_mults=None, par_fluxes=None):
         """Level lev's nt = c.nt * nt_mults[lev] substeps between its
         parent patches' states at t (pars_old) and t + dt (pars_new),
         lists with one entry per parent patch: before each, every patch's
@@ -1029,7 +1051,13 @@ class AMRHierarchy:
         substep's midpoint; the next level subcycles inside every
         substep, between this level's halo-refreshed and advanced
         states.  fine_states[lev] is updated in place.  Returns the parent
-        patches' states with each patch averaged down into its own."""
+        patches' states with each patch averaged down into its own.
+
+        par_fluxes (refluxing): per parent patch, the advective interface
+        fluxes of its step.  Each patch then collects its own on every
+        substep into its flux register (weight 1/nt), hands them down to
+        the level below, and after the average-down closes the register
+        with its parent's fluxes and refluxes the parent patch."""
         c = self.couplings[lev]
         lvls = c.levels
         origs, ws, psel = args[lev]
@@ -1037,6 +1065,13 @@ class AMRHierarchy:
         dt_f = dt / nt
         patches = c.unstack(fine_states[lev])
         has_child = lev + 1 < len(self.couplings)
+        refluxing = par_fluxes is not None and bool(self.reflux_fields)
+        regs = fluxes = None
+        if refluxing:
+            fr = c.flux_register
+            keys = [key for key, _ in self._flux_items(par_fluxes[0])]
+            regs = [{key: fr.zeros() for key in keys} for _ in origs]
+            fluxes = [None] * len(origs)
         for i in range(nt):
             mid = (i + 0.5) / nt
             donors = {}
@@ -1053,38 +1088,142 @@ class AMRHierarchy:
                 prev[k] = s_f
                 rings = {"mac": c._ring(mac_mid, o),
                          "cc": c._ring(cc_mid, o, 1.0 / nt)}
-                patches[k] = lvls[k].advance(s_f, dt_f, rings=rings)
+                if refluxing:
+                    patches[k], fluxes[k] = lvls[k].advance(
+                        s_f, dt_f, rings=rings, collect_fluxes=True)
+                    for key, flux in self._flux_items(fluxes[k]):
+                        regs[k][key] = fr.increment_fine(regs[k][key], flux,
+                                                         1.0 / nt)
+                else:
+                    patches[k] = lvls[k].advance(s_f, dt_f, rings=rings)
             if has_child:
                 patches = self._advance_recursive(
                     lev + 1, prev, patches, fine_states, args, dt_f,
-                    nt_mults)
+                    nt_mults, par_fluxes=fluxes)
         fine_states[lev] = c.stack(patches)
         out = list(pars_new)
         for k, o in enumerate(origs):
             out[psel[k]] = c.average_down(out[psel[k]], patches[k], o,
                                           weight=ws[k], J_f=c.slot_J(k))
+        if refluxing:
+            for k, o in enumerate(origs):
+                p = psel[k]
+                out[p] = self._apply_reflux(
+                    lev, out[p], regs[k], self._flux_items(par_fluxes[p]),
+                    o, ws[k], self._parent_level(lev, p), dt)
         return out
+
+    def _parent_level(self, lev: int, p: int):
+        """The level of parent patch p of level lev (the base at lev =
+        0): its metric and its implicit-reflux solvers."""
+        return self.level0 if lev == 0 else self.couplings[lev - 1].levels[p]
+
+    def _flux_items(self, fluxes: dict):
+        """(key, per-direction flux tuple) pairs of the refluxed fields:
+        ("vel", m), ("scalars", c) and ("lam",)."""
+        items = []
+        if "vel" in self.reflux_fields and "vel" in fluxes:
+            items += [(("vel", m), fl) for m, fl in enumerate(fluxes["vel"])]
+        if "scalars" in self.reflux_fields and "scalars" in fluxes:
+            items += [(("scalars", i), fl)
+                      for i, fl in enumerate(fluxes["scalars"])]
+        if "lam" in self.reflux_fields and "lam" in fluxes:
+            items.append((("lam",), fluxes["lam"]))
+        return items
+
+    def _apply_reflux(self, lev: int, par: NSState, regs: dict, coarse_items,
+                      origin_f, weight, plev, dt: float) -> NSState:
+        """Close one patch's registers with its parent patch's interface
+        fluxes and add each field's correction to the parent state: the
+        explicit reflux, times the patch's weight at K > 1, or with
+        implicit refluxing of a viscous / diffusive field the solve of
+        (I - dt kappa L) corr = that reflux on the parent level."""
+        fr = self.couplings[lev].flux_register
+        regs = dict(regs)
+        for key, flux in coarse_items:
+            regs[key] = fr.increment_coarse(regs[key], flux, origin_f)
+
+        def corr_of(key, field):
+            rhs = fr.reflux(torch.zeros_like(field), regs[key], origin_f,
+                            dt, plev.geo)
+            if weight is not None:
+                rhs = rhs * weight
+            solver = None
+            if self.implicit_reflux:
+                if key[0] == "vel" and plev.is_viscous:
+                    solver = plev.visc_solvers[key[1]]
+                elif key[0] == "scalars":
+                    solver = plev.diff_solvers[key[1]]
+            if solver is None:
+                return rhs
+            corr, _ = solver._helmholtz_solve(rhs, 1.0, dt, rhs)
+            return corr
+
+        vel, scalars, lam = par.vel.clone(), par.scalars.clone(), par.lam
+        for key in regs:
+            if key[0] == "lam":
+                lam = lam + corr_of(key, lam)
+                continue
+            field = vel if key[0] == "vel" else scalars
+            field[key[1]] += corr_of(key, field[key[1]])
+        return dataclasses.replace(par, vel=vel, scalars=scalars, lam=lam)
 
     def advance(self, s0: NSState, fine_states, origins, dt, geos=None,
                 weights=None, nt_mults=None, parent_sels=None):
         """One coarse step of length dt (a Python float): the base
         advance, the nested subcycled patch advances (nt_mults: each
-        refined level's dynamic-subcycling factor), average-down and the
-        composite sync projection.  fine_states / origins / weights: per
-        refined level (or the one level's, bare); parent_sels: per level
-        where the parent has K > 1 patches.  Returns (s0_new,
-        fine_states_new) in the form given.  geos: see _check_geos."""
+        refined level's dynamic-subcycling factor), average-down, the
+        advective refluxing of the fields in reflux_fields, the composite
+        sync projection, and with eta_lambda > 0 the composite VD solve
+        that sets every level's e_lambda.  fine_states / origins /
+        weights: per refined level (or the one level's, bare);
+        parent_sels: per level where the parent has K > 1 patches.
+        Returns (s0_new, fine_states_new) in the form given.  geos: see
+        _check_geos."""
         fs, orgs, ws, single = self._forms(fine_states, origins, weights)
         self._check_geos(geos, single)
         args = self._patch_args(orgs, ws, parent_sels)
         dt = float(dt)
-        s0_new = self.level0.advance(s0, dt)
-        (s0_new,) = self._advance_recursive(0, [s0], [s0_new], fs, args, dt,
-                                            nt_mults)
+        fl0 = None
+        if self.reflux_fields:
+            s0_new, fl0 = self.level0.advance(s0, dt, collect_fluxes=True)
+        else:
+            s0_new = self.level0.advance(s0, dt)
+        (s0_new,) = self._advance_recursive(
+            0, [s0], [s0_new], fs, args, dt, nt_mults,
+            par_fluxes=None if fl0 is None else [fl0])
         if self.params.is_incompressible and self.do_sync_projection:
             for _ in range(self.sync_projection_iters):
                 s0_new = self._sync_project(s0_new, fs, args)
+        if self.eta_lambda > 0.0:
+            s0_new = self._vd_correction(s0_new, fs, args, dt)
         return (s0_new, fs[0]) if single else (s0_new, tuple(fs))
+
+    def _vd_correction(self, s0: NSState, fine_states: list, args,
+                       dt: float) -> NSState:
+        """The volume-discrepancy (freestream) correction: one composite
+        pass (purpose "vd") of L e = eta_lambda (lambda - 1) / dt over
+        every level, the base rhs's mean removed and each level's
+        e_lambda the warm start; the potentials become every level's
+        e_lambda (the K-stacked ones per patch).  fine_states is updated
+        in place; returns the base state."""
+        eta = self.eta_lambda
+        rhs0 = eta * (s0.lam - 1.0) / dt
+        rhss = [rhs0 - torch.mean(rhs0)]
+        phis0 = [s0.e_lambda]
+        for lev, c in enumerate(self.couplings):
+            patches = c.unstack(fine_states[lev])
+            rhss.append([eta * (p.lam - 1.0) / dt for p in patches])
+            phis0.append([p.e_lambda for p in patches])
+        solver = AMRCompositeSolver(self, CompositeParams(iters=1,
+                                                          purpose="vd"))
+        phis, self.last_vd_info = solver.solve_patches(rhss, args,
+                                                       phis0=phis0)
+        for lev, c in enumerate(self.couplings):
+            fine_states[lev] = c.stack([
+                dataclasses.replace(p, e_lambda=e) for p, e in zip(
+                    c.unstack(fine_states[lev]), phis[lev + 1])])
+        return dataclasses.replace(s0, e_lambda=phis[0])
 
     def init_project(self, s0: NSState, fine_states, origins, geos=None,
                      weights=None, parent_sels=None, iters: int = 1):
@@ -1123,9 +1262,6 @@ class AMRHierarchy:
         composite potential (each patch with its parent's potential as
         the CF ring), and the corrected patches averaged down bottom-up.
         fine_states is updated in place; returns the base state."""
-        from somar_tpu_torch.amr.composite import (AMRCompositeSolver,
-                                                   CompositeParams)
-        from somar_tpu_torch.amr.flux_register import PatchFluxRegister
         level0 = self.level0
         f0 = level0.projector.cc_fluxes(s0.vel, level0.vel_bcs_trace)
         rhss = [mac_divergence(f0, level0.geo)]
@@ -1413,8 +1549,12 @@ class AMRHierarchy:
         dropped), each new patch filled from its parent patch and
         overwritten by the level's old active patches where they overlap
         in the level's global fine index space.  Shallower levels keep
-        their patches and data.  dt is the JAX signature's (it feeds
-        post-regrid smoothing, which raises).  Returns (fine_states,
+        their patches and data.  With regrid_smoothing_coeff > 0 and dt
+        given, the moved data is smoothed: (I - mu L) applied to the
+        parents and to the old patches, and solved on every new patch, so
+        that data which did not move comes back as it was and freshly
+        interpolated cells diffuse with strength mu = coeff dt kappa
+        (`_smooth_mus`).  Returns (fine_states,
         origins) in the form given, plus (weights,) when a level has
         K > 1 patches."""
         single = not isinstance(fine_states, (list, tuple))
@@ -1423,12 +1563,22 @@ class AMRHierarchy:
             raise ValueError(f"{len(fs)} refined-level states for "
                              f"{len(self.couplings)} refined levels")
         self._maybe_escalate_patches(fs, from_level)
+        # post-regrid smoothing: off without dt, without viscosity or
+        # diffusion, and on a mapped base (the JAX package's rule)
+        smoothing = (self.regrid_smoothing_coeff > 0.0 and dt is not None
+                     and (self.params.nu > 0.0
+                          or any(k > 0.0 for k in self.params.kappa))
+                     and not self.is_mapped)
+        mus = self._smooth_mus(float(dt)) if smoothing else None
         # every level's old active patches (state, global origin) and
-        # shape, before any level moves
+        # shape, before any level moves; smoothing applies (I - mu L) to
+        # them on their own level
         olds = []
         for lev, c in enumerate(self.couplings):
             old = [] if lev < from_level or c.origin_f is None else [
-                (p, self._global_origin(lev, last_origin=o, patch=k))
+                (self._apply_smooth_op(c.level, p, *mus) if smoothing
+                 else p,
+                 self._global_origin(lev, last_origin=o, patch=k))
                 for k, (p, o, wk) in enumerate(zip(
                     c.unstack(fs[lev]), c.patch_origins(c.origin_f),
                     c.patch_weights(c.weights)))
@@ -1445,6 +1595,12 @@ class AMRHierarchy:
                                else c.weights.copy())
                 par_patches, par_w = c.unstack(fs[lev]), c.weights
                 continue
+            if smoothing:
+                # the parents are tagged and interpolated smoothed
+                plev = (self.level0 if lev == 0
+                        else self.couplings[lev - 1].level)
+                par_patches = [self._apply_smooth_op(plev, p, *mus)
+                               for p in par_patches]
             c, (org, w, psel) = self._right_sized_choice(
                 lev, par_patches, par_w,
                 lambda: self._grow_for_regrid_coverage(lev, fs))
@@ -1458,6 +1614,8 @@ class AMRHierarchy:
                 for q, old_g in old:
                     s_k = self._overlap_copy(s_k, q, new_g, old_g,
                                              c.ext_grid.shape, old_shape)
+                if smoothing:
+                    s_k = self._solve_smooth_op(c.level, s_k, *mus)
                 patches.append(s_k)
             states.append(c.stack(patches))
             origins.append(c.origin_f.copy())
@@ -1466,6 +1624,59 @@ class AMRHierarchy:
         if single:
             return states[0], origins[0]
         return self._result(states, origins, weights)
+
+    # -------------------------------------------- post-regrid smoothing
+    def _smooth_mus(self, dt: float):
+        """The smoothing strengths (mu of the velocity, per scalar mu):
+        coeff * dt * nu and coeff * dt * kappa."""
+        c = self.regrid_smoothing_coeff
+        kap = self.params.kappa
+        return c * dt * self.params.nu, [
+            c * dt * (kap[i] if i < len(kap) else 0.0)
+            for i in range(self.problem.num_scalars)]
+
+    @staticmethod
+    def _apply_smooth_op(level, state: NSState, mu_v, mu_s) -> NSState:
+        """(I - mu L) applied to the velocity (its viscous operators) and
+        to each diffusive scalar (its diffusion operator), with the BC
+        values."""
+        vel = state.vel
+        if mu_v > 0.0:
+            vel = torch.stack([
+                level._visc_ops[m].apply(state.vel[m], 1.0, -mu_v,
+                                         homogeneous=False)
+                for m in range(vel.shape[0])])
+        scal = torch.stack([
+            level.diff_solvers[i]._op.apply(state.scalars[i], 1.0,
+                                            -mu_s[i], homogeneous=False)
+            if mu_s[i] > 0.0 and level.diff_solvers[i] is not None
+            else state.scalars[i] for i in range(state.scalars.shape[0])])
+        return dataclasses.replace(state, vel=vel, scalars=scal)
+
+    @staticmethod
+    def _solve_smooth_op(level, state: NSState, mu_v, mu_s) -> NSState:
+        """Solve (I - mu L) out = field for the velocity and each
+        diffusive scalar by BiCGStab from the field, the BC values
+        folded into the right-hand side (so that applying, then solving,
+        is the identity)."""
+        from somar_tpu_torch.solvers.bicgstab import bicgstab
+
+        def solve(op, rhs, mu):
+            bc_term = op.apply(torch.zeros_like(rhs), 1.0, -mu,
+                               homogeneous=False)
+            x, _ = bicgstab(lambda v: op.apply(v, 1.0, -mu),
+                            rhs - bc_term, x0=rhs)
+            return x
+
+        vel = state.vel
+        if mu_v > 0.0:
+            vel = torch.stack([solve(level._visc_ops[m], state.vel[m], mu_v)
+                               for m in range(vel.shape[0])])
+        scal = torch.stack([
+            solve(level.diff_solvers[i]._op, state.scalars[i], mu_s[i])
+            if mu_s[i] > 0.0 and level.diff_solvers[i] is not None
+            else state.scalars[i] for i in range(state.scalars.shape[0])])
+        return dataclasses.replace(state, vel=vel, scalars=scal)
 
     def restore(self, fine_states, origins, weights=None, parent_sels=None):
         """Set the refined levels to a checkpoint's patches, coarse to

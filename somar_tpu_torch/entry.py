@@ -25,7 +25,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from somar_tpu_torch.amr.hierarchy import SLICE11, AMRHierarchy
+from somar_tpu_torch.amr.hierarchy import AMRHierarchy
 from somar_tpu_torch.amr.tagging import TagParams
 from somar_tpu_torch.core.grid import Grid
 from somar_tpu_torch.geometry.bathymetric import BeamGeneratorMap
@@ -176,22 +176,17 @@ def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
     value pins it; a per-level list pins each level it names) and
     amr.grid_buffer_size (the nest buffer, default 1) included.  The
     regrid cadence amr.regrid_intervals (default 10) is set on the
-    hierarchy as `regrid_intervals`, one per refined level.  Keys that
-    select what the port does not have yet (refluxing, post-regrid
-    smoothing, the VD correction) raise NotImplementedError naming slice
-    11."""
+    hierarchy as `regrid_intervals`, one per refined level.  As in the
+    JAX driver, amr.advective_{momentum,scalar,lambda}_reflux select the
+    refluxed fields ("vel", "scalars", "lam"), either of
+    amr.implicit_{scalar,momentum}_reflux turns implicit refluxing on,
+    amr.postRegrid_smoothing_coeff (with amr.smooth_after_regrid) is the
+    smoothing coefficient, and projection.etaLambda is eta_lambda where
+    projection.applyVDCorrection is on."""
     a = ctx.amr
     if a.max_level < 1:
         raise ValueError("amr.maxlevel = 0 has no refined level: use "
                          "RunDriver")
-    if a.advective_momentum_reflux or a.advective_scalar_reflux \
-            or a.advective_lambda_reflux or a.implicit_scalar_reflux \
-            or a.implicit_momentum_reflux:
-        raise NotImplementedError(f"refluxing is {SLICE11}")
-    if a.regrid_smoothing_coeff > 0.0:
-        raise NotImplementedError(f"post-regrid smoothing is {SLICE11}")
-    if a.apply_vd_correction and a.eta_lambda > 0.0:
-        raise NotImplementedError(f"the VD correction is {SLICE11}")
     grid = ctx.base_grid()
     geo = build_level_geometry(grid, ctx.new_geo_source(), device=device,
                                dtype=ctx.ns.dtype)
@@ -205,6 +200,14 @@ def amr_hierarchy_from_context(ctx, device="cuda") -> AMRHierarchy:
     h = AMRHierarchy(
         geo, ctx.new_problem(), ctx.ns,
         ratios=list(a.ref_ratios[:a.max_level]), tag_params=tags,
+        reflux=tuple(name for flag, name in (
+            (a.advective_momentum_reflux, "vel"),
+            (a.advective_scalar_reflux, "scalars"),
+            (a.advective_lambda_reflux, "lam")) if flag),
+        implicit_reflux=(a.implicit_scalar_reflux
+                         or a.implicit_momentum_reflux),
+        regrid_smoothing_coeff=a.regrid_smoothing_coeff,
+        eta_lambda=a.eta_lambda if a.apply_vd_correction else 0.0,
         num_patches=a.max_patches, use_subcycling=a.use_subcycling,
         max_grid_size=a.max_grid_size,
         grid_buffer_size=a.grid_buffer_size,

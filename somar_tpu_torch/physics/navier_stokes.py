@@ -25,7 +25,9 @@ physics/rk3.py instead.
 
 AMR patch levels (amr/hierarchy.py) pass `rings` to `advance`: the CF
 ghost potentials of the MAC and the CC projection.  `collect_fluxes`
-returns the advective interface fluxes a flux register accumulates.
+returns the advective interface fluxes a flux register accumulates.  With
+`use_vd_correction` (AMR with eta_lambda > 0) the advecting velocity
+gains grad e_lambda after its MAC projection.
 
 Uniform Cartesian levels run with spectral, multigrid, BiCGStab or
 leptic pressure solves and spectral or multigrid heat solves; mapped
@@ -45,10 +47,10 @@ import numpy as np
 import torch
 
 from somar_tpu_torch.core.bc import (
-    BC, FieldBCs, apply_fc_bc, bind_bcs_time, fill_ghosts_cc)
+    BC, BCType, FieldBCs, apply_fc_bc, bind_bcs_time, fill_ghosts_cc)
 from somar_tpu_torch.geometry.level_geometry import LevelGeometry
 from somar_tpu_torch.ops.stencil import (
-    avg_along, cc_to_fc, face_avg, mac_divergence, slc)
+    avg_along, cc_to_fc, face_avg, mac_divergence, mac_gradient, slc)
 from somar_tpu_torch.physics.godunov import (
     ADVECT_GROW, AdvectionParams, _crop_faces, divergence_from_partials,
     flux_divergence, momentum_flux_divergence, pad_valid_faces,
@@ -160,6 +162,9 @@ class NSLevel:
         kw = dict(dtype=dtype, device=self.device)
 
         self.is_viscous = params.nu > 0.0
+        #: add grad e_lambda (the AMR VD correction's potential) to the
+        #: advecting velocity; set by AMRHierarchy when eta_lambda > 0
+        self.use_vd_correction = False
         # BC sets, their array profiles moved to the device once
         self.vel_bcs_trace = tuple(
             b.on_device(self.device, dtype)
@@ -464,6 +469,17 @@ class NSLevel:
                         for d in range(ndim))
         else:
             mac_phi = state.mac_phi
+        if self.use_vd_correction:
+            # the volume-discrepancy (freestream) correction: grad e_lambda
+            # added to the advecting velocity.  A patch level's CF sides
+            # take a linear extrapolation: the halo holds donor-filled
+            # e_lambda, and a CF ghost without ring data would read 0
+            fix = lambda b: BC.extrap(1) if b.type == BCType.CF else b
+            pb = self.projector.phi_bcs
+            grad_e = mac_gradient(state.e_lambda, geo, FieldBCs(
+                lo=tuple(fix(b) for b in pb.lo),
+                hi=tuple(fix(b) for b in pb.hi)))
+            adv = tuple(adv[d] + grad_e[d] for d in range(ndim))
         return adv, mac_phi
 
     # ------------------------------------------------------------ scalars

@@ -41,6 +41,7 @@ from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from somar_tpu_torch.physics import godunov as tgd
 from somar_tpu_torch.problems.lock_exchange import LockExchange as TLock
 from somar_tpu_torch.utils import filters as tfl
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -56,6 +56,7 @@ from somar_tpu_torch.config.parmparse import ParmParse as TPP
 from somar_tpu_torch.driver import RunDriver as TDriver
 from somar_tpu_torch.io import checkpoint as tck
 from tests.test_driver_io import AMR_CFG
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

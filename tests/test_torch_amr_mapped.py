@@ -66,6 +66,7 @@ from somar_tpu_torch.ops import norms as tnorms
 from somar_tpu_torch.physics.navier_stokes import NSParams
 from somar_tpu_torch.problems.lock_exchange import LockExchange
 from somar_tpu_torch.solvers.multigrid import MGParams
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -43,6 +43,7 @@ from somar_tpu_torch.driver import RunDriver as TDriver
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from tests.test_driver_io import AMR_CFG
 from tests.test_torch_amr_mapped import jax_c28  # noqa: F401 (autouse)
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

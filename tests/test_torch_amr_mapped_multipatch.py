@@ -3,17 +3,22 @@ against the JAX package on the CPU, in float64 with the smoothing bottom
 solver (ROADMAP C.7): the TwistedMap two fronts of
 tests/test_amr.py:296-320 (2D 96x12, perturbations (0.2, 0.02), buoyancy
 lumps at x = -4 and 4, buoyancy_tag_tol 0.12, tags_grow 1, patch_frac
-0.2) at one refined level, ratio (2, 1), K = 2 pinned, inviscid,
-without refluxing (slice 11c):
+0.2) at one refined level, ratio (2, 1), K = 2 pinned, inviscid:
 
   * each slot's geometry at the placement and after a regrid that moves
     both lumps 6 cells along +x: J and every face metric array equal
     slot k of JAX's stacked bundle and a direct evaluation of the map on
     the slot's window, to 1e-12; the two slots' metrics differ;
   * two coarse steps with the sync, the regrid and one more step equal
-    the jitted JAX advance with geos = h.geo_bundles (the module's one
-    jitted JAX step) within 1e-8 of max|field|, origins and weights
-    exactly; level_dts and compute_dt to 1e-12;
+    the jitted JAX advance with geos = h.geo_bundles within 1e-8 of
+    max|field|, origins and weights exactly; level_dts and compute_dt to
+    1e-12;
+  * the same hierarchy with all three fields refluxed and the VD
+    correction (eta_lambda 0.9), as tests/test_amr.py:296 runs it (each
+    slot refluxes into the base through the base's metric and takes its
+    own e_lambda): two coarse steps from the same placement equal the
+    jitted JAX advance within 1e-8 of max|field|, e_lambda included, and
+    the two features move the JAX state by more than 100x that;
   * the composite sums and norms (p = 0, 1, 2) equal the direct sum over
     the base and each slot on its own J, to 1e-12, where JAX's weigh
     slot 1 by slot 0's J (ROADMAP C.26): the two differ.
@@ -49,6 +54,7 @@ from somar_tpu_torch.problems.lock_exchange import LockExchange
 from somar_tpu_torch.solvers.multigrid import MGParams
 from tests.test_torch_amr_mapped import FIELDS, GEO_TOL, STEP_TOL, \
     _geo_arrays, _host, jax_c28  # noqa: F401 (jax_c28: an autouse fixture)
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -67,9 +73,9 @@ def _fronts(x, shift=0.0):
             | (np.abs(x - 4.0 - shift) < 0.8)).astype(np.float64)
 
 
-def _pair():
+def _pair(**features):
     kw = dict(nx=(NX, NZ), dx=(LX / NX, LZ / NZ), x0=(-LX / 2, 0.0))
-    hkw = dict(ratio=(2, 1), patch_frac=0.2, num_patches=2)
+    hkw = dict(ratio=(2, 1), patch_frac=0.2, num_patches=2, **features)
     jh = JH(jgeo(JGrid(**kw), JTwisted(PERT, (LX, LZ)), dtype=jnp.float64),
             JLock(pert_amp=0.0),
             JParams(nu=0.0, kappa=(0.0,), gravity_method=1, mg=JMG(**MG),
@@ -92,21 +98,26 @@ def _slot_geos(jh, th):
              th._global_origin(0, patch=k)) for k in range(tc.K)]
 
 
+def _placed(jh, th):
+    """Both packages' base states with the two lumps, and their placed
+    patches: ((js, jf, jo, jw), (ts, tf, to, tw), x)."""
+    js = jh.level0.post_initialize(jh.level0.initial_state())
+    x = np.asarray(jh.level0.geo.phys_coords_cc()[0])
+    base = _host(js)
+    base["scalars"] = base["scalars"].copy()
+    base["scalars"][0] = np.broadcast_to(_fronts(x), base["lam"].shape)
+    js = JState(**{f: jnp.asarray(v) for f, v in base.items()})
+    ts = entry.ns_state_from_numpy(base, device="cpu", dtype=torch.float64)
+    return ((js,) + tuple(jh.initial_patch_states(js)),
+            (ts,) + tuple(th.initial_patch_states(ts)), x)
+
+
 @pytest.fixture(scope="module")
 def fronts():
     jax.config.update("jax_enable_x64", True)
     try:
         jh, th = _pair()
-        js = jh.level0.post_initialize(jh.level0.initial_state())
-        x = np.asarray(jh.level0.geo.phys_coords_cc()[0])
-        base = _host(js)
-        base["scalars"] = base["scalars"].copy()
-        base["scalars"][0] = np.broadcast_to(_fronts(x), base["lam"].shape)
-        js = JState(**{f: jnp.asarray(v) for f, v in base.items()})
-        ts = entry.ns_state_from_numpy(base, device="cpu",
-                                       dtype=torch.float64)
-        jf, jo, jw = jh.initial_patch_states(js)
-        tf, to, tw = th.initial_patch_states(ts)
+        (js, jf, jo, jw), (ts, tf, to, tw), x = _placed(jh, th)
         out = {"placed": [(np.asarray(jo[0]), to[0].copy(),
                            np.asarray(jw[0]), tw[0].copy())],
                "geo": [_slot_geos(jh, th)], "states": {}}
@@ -252,3 +263,53 @@ def test_k2_norms_on_each_slots_own_volumes(fronts):
         assert abs(tv - w) <= 1e-12 * abs(w), (tv, w)
     assert any(abs(jv - tv) > 1e-6 * abs(tv)
                for jv, tv in fronts["norms"][:1] + fronts["norms"][2:])
+
+
+@pytest.fixture(scope="module")
+def fronts_reflux_vd(fronts):
+    """Two coarse steps of the hierarchy with all three fields refluxed and
+    the VD correction, from the same placement as `fronts`."""
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jh, th = _pair(reflux=True, eta_lambda=0.9)
+        (js, jf, jo, jw), (ts, tf, to, tw), _ = _placed(jh, th)
+        assert th.reflux_fields == ("vel", "scalars", "lam")
+        assert th.level0.use_vd_correction
+        assert all(lv.use_vd_correction for lv in th.couplings[0].levels)
+        step = jax.jit(jh.advance)
+        dt = jnp.asarray(DT, jnp.float64)
+        out = {}
+        for i in range(2):
+            js, jf = step(js, jf, jo, dt, jh.geo_bundles, jw)
+            ts, tf = th.advance(ts, tf, to, DT, weights=tw)
+            out[f"step{i + 1}"] = ((_host(js), _host(jf[0])),
+                                   (entry.ns_state_to_numpy(ts),
+                                    entry.ns_state_to_numpy(tf[0])))
+        return out
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _max_rel(want, got, fields):
+    return max(np.abs(g[f] - w[f]).max() / max(np.abs(w[f]).max(), 1e-30)
+               for w, g in zip(want, got) for f in fields)
+
+
+@pytest.mark.parametrize("stage", ["step1", "step2"])
+def test_k2_reflux_vd_steps_match_jax(fronts_reflux_vd, stage):
+    (jb, jf), (tb, tf) = fronts_reflux_vd[stage]
+    for level, want, got in (("base", jb, tb), ("patches", jf, tf)):
+        for f in FIELDS + ("e_lambda",):
+            assert got[f].shape == want[f].shape, (level, f)
+    assert _max_rel((jb, jf), (tb, tf), FIELDS + ("e_lambda",)) \
+        <= STEP_TOL
+    assert np.abs(tf["e_lambda"]).max() > 0.0
+
+
+def test_k2_reflux_vd_moves_the_jax_step(fronts, fronts_reflux_vd):
+    """Refluxing and the VD correction move the JAX state more than 100x
+    the step tolerance from the plain hierarchy's, on both levels."""
+    plain = fronts["states"]["step2"][0]
+    (jb, jf), _ = fronts_reflux_vd["step2"]
+    for want, got in zip(plain, (jb, jf)):
+        assert _max_rel((want,), (got,), FIELDS) > 100 * STEP_TOL

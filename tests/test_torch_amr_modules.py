@@ -26,12 +26,15 @@ eagerly, in float64 (jax_enable_x64) unless named:
   * entry.amr_hierarchy_from_context against the JAX RunDriver's
     hierarchy from the same deck (footprint, nt, tag parameters, sync
     knobs, the regrid cadence, the placed origin; amr.max_patches = 2
-    pinning K), and the deck keys of slice 11 raising;
+    pinning K), and the deck keys of slice 11c (refluxing, implicit
+    refluxing, post-regrid smoothing, the VD correction) set as the JAX
+    driver sets them;
   * placement right-sizing as in JAX: the footprint widened with
     max_auto_patches = 1, K doubled without it;
-  * the features that slice 10 ported (K pinned by num_patches, regrid,
-    dynamic subcycling, weights) run, and the rest raise
-    NotImplementedError naming slice 11;
+  * the features that slices 10 and 11 ported (K pinned by num_patches,
+    regrid, dynamic subcycling, weights, refluxing, the VD correction,
+    post-regrid smoothing, RK3 with CF rings) run; attach_mesh raises
+    naming ROADMAP A.7;
   * chip_smoke.py's limit on the sync solve's final relres: the sound
     solve stays below it after each of 3 coarse steps on A0's 3D and 2D
     hierarchies, and each fault of SYNC_FAULTS (one composite pass, no
@@ -79,6 +82,7 @@ from somar_tpu_torch.core.grid import Grid as TGrid
 from somar_tpu_torch.ops import norms as tnorms
 from somar_tpu_torch.physics.navier_stokes import NSState as TState
 from somar_tpu_torch.solvers.multigrid import MGParams as TMG
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -384,14 +388,30 @@ def test_amr_hierarchy_from_context_matches_jax_driver(tmp_path):
     for jc, tc in zip(jh3.couplings, th3.couplings):
         assert (tc.ext_nx, tc.nt, tc.nest_buffer, tc.parent_halo_axes) == (
             jc.ext_nx, jc.nt, jc.nest_buffer, jc.parent_halo_axes)
-    for extra in ("amr.advective_scalar_reflux = 1\n",
+    for extra in ("amr.advective_scalar_reflux = 1\n"
+                  "amr.advective_lambda_reflux = 1\n"
+                  "amr.implicit_scalar_reflux = 1\n",
+                  "amr.advective_momentum_reflux = 1\n"
+                  "amr.implicit_momentum_reflux = 1\n",
                   "amr.smooth_after_regrid = 1\n"
                   "amr.postRegrid_smoothing_coeff = 1.0\n",
                   "projection.applyVDCorrection = 1\n"
+                  "projection.etaLambda = 0.9\n",
+                  "projection.applyVDCorrection = 0\n"
                   "projection.etaLambda = 0.9\n"):
-        ctx = TContext.from_parmparse(TPP.from_string(AMR_DECK + extra))
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            entry.amr_hierarchy_from_context(ctx, device="cpu")
+        deck = AMR_DECK + extra
+        jx = JDriver(JContext.from_parmparse(JPP.from_string(deck)),
+                     out_dir=str(tmp_path)).hierarchy
+        tx = entry.amr_hierarchy_from_context(
+            TContext.from_parmparse(TPP.from_string(deck)), device="cpu")
+        for knob in ("reflux_fields", "implicit_reflux",
+                     "regrid_smoothing_coeff", "eta_lambda"):
+            assert getattr(tx, knob) == getattr(jx, knob), (extra, knob)
+        assert tx.level0.use_vd_correction == jx.level0.use_vd_correction
+        assert tx.couplings[0].level.use_vd_correction \
+            == jx.couplings[0].level.use_vd_correction
+        assert (tx.couplings[0].flux_register is None) == (
+            getattr(jx.couplings[0], "flux_register", None) is None)
 
 
 # ------------------------------------------------------------ clustering
@@ -620,11 +640,11 @@ def test_aux_fields_stand_in_for_the_derived_ones():
 
 # ------------------------------------------------------------- slice 10
 def test_slice10_features_raise(pair):
-    """What slices 10, 11a and 11b ported runs (K pinned by num_patches,
-    regrid, dynamic subcycling, weights at K = 1, nested levels, mapped
-    patches and the `geos` argument); refluxing, the VD correction,
-    post-regrid smoothing, RK3 with CF rings and sharded steps raise
-    naming slice 11."""
+    """What slices 10 and 11 ported runs (K pinned by num_patches, regrid,
+    dynamic subcycling, weights at K = 1, nested levels, mapped patches
+    and the `geos` argument; refluxing, implicit refluxing, the VD
+    correction, post-regrid smoothing, RK3 with CF rings and flux
+    collection); sharded steps raise naming ROADMAP A.7."""
     jh, th = pair
     level = th.level0
     kw = dict(ratio=(4, 1))
@@ -638,12 +658,27 @@ def test_slice10_features_raise(pair):
                       ratios=[(4, 1), (2, 1)], num_patches=(1, 2))
     assert [c.K for c in h3.couplings] == [1, 2]
     assert h3._pinned_K == [True, True] and h3.num_levels == 3
-    for bad in (dict(reflux=("vel",), **kw),
-                dict(implicit_reflux=True, **kw),
-                dict(eta_lambda=0.9, **kw),
-                dict(regrid_smoothing_coeff=1.0, **kw)):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            AMRHierarchy(level.geo, level.problem, level.params, **bad)
+    for feat in (dict(reflux=("vel",), **kw),
+                 dict(reflux=True, implicit_reflux=True, **kw),
+                 dict(eta_lambda=0.9, **kw),
+                 dict(regrid_smoothing_coeff=1.0, **kw)):
+        hf = AMRHierarchy(level.geo, level.problem, level.params, **feat)
+        assert hf.reflux_fields == {
+            (): (), ("vel",): ("vel",), True: ("vel", "scalars", "lam")}[
+            feat.get("reflux", ())]
+        assert (hf.couplings[0].flux_register is not None) \
+            == bool(hf.reflux_fields)
+        assert hf.implicit_reflux == feat.get("implicit_reflux", False)
+        vd = feat.get("eta_lambda", 0.0) > 0.0
+        assert hf.level0.use_vd_correction == vd
+        assert hf.couplings[0].level.use_vd_correction == vd
+        assert hf.regrid_smoothing_coeff == feat.get(
+            "regrid_smoothing_coeff", 0.0)
+        f0, ff, fo = entry.place_amr(hf)
+        f0, ff = hf.advance(f0, ff, fo, 0.01)
+        assert bool(torch.isfinite(ff.vel).all()) and bool(
+            torch.isfinite(f0.e_lambda).all())
+        assert bool((ff.e_lambda != 0).any()) == vd
     s0, fine, origin = entry.place_amr(th)
     fine2, origin2 = th.regrid(s0, fine)
     assert fine2.vel.shape == fine.vel.shape and origin2.shape == (2,)
@@ -684,12 +719,23 @@ def test_slice10_features_raise(pair):
     assert bool(torch.isfinite(nf.vel).all())
     with pytest.raises(ValueError, match="geo_bundles"):
         hm.advance(m0, mf, mo, 0.01, geos=[{"geo": None}])
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         th.attach_mesh(None)
+    # RK3 on a patch level takes the CF rings and collects the fluxes
     from somar_tpu_torch.physics.rk3 import advance_rk3
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        advance_rk3(th.couplings[0].level, fine, 0.01,
-                    rings={"mac": None, "cc": None})
+    c0 = th.couplings[0]
+    phi = torch.as_tensor(np.random.default_rng(5).normal(
+        size=tuple(s0.lam.shape)), dtype=s0.lam.dtype)
+    rings = {"mac": c0._ring(phi, origin), "cc": c0._ring(phi, origin, 0.25)}
+    collect = {}
+    r1 = advance_rk3(c0.level, fine, 0.01, rings=rings, collect=collect)
+    r0 = advance_rk3(c0.level, fine, 0.01)
+    assert bool(torch.isfinite(r1.vel).all())
+    assert not torch.equal(r1.vel, r0.vel)
+    assert sorted(collect) == ["lam", "scalars", "vel"]
+    assert [f.shape for f in collect["lam"]] == [
+        tuple(n + (ax == 1) for ax, n in enumerate(c0.ext_grid.shape)),
+        tuple(n + (ax == 0) for ax, n in enumerate(c0.ext_grid.shape))]
 
 
 # ------------------------------------------------- the sync relres gate

@@ -47,6 +47,7 @@ from somar_tpu_torch.amr.tagging import TagParams as TTags
 from somar_tpu_torch.ops import norms as tnorms
 from somar_tpu_torch.physics.navier_stokes import NSParams as TParams
 from somar_tpu_torch.solvers.multigrid import MGParams as TMG
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

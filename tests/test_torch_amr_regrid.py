@@ -46,6 +46,7 @@ from somar_tpu_torch.amr.tagging import tag_coverage as tcoverage
 from somar_tpu_torch.core.grid import Grid as TGrid
 from somar_tpu_torch.physics.navier_stokes import NSParams as TParams
 from somar_tpu_torch.solvers.multigrid import MGParams as TMG
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

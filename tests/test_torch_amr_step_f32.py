@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from tests.test_torch_amr_step import CASES, STAGES, check_stage, run_pair
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -36,6 +36,7 @@ from somar_tpu_torch.core.grid import Grid as TGrid
 from somar_tpu_torch.geometry.bathymetric import (
     BeamGeneratorMap as TBeamMap, LedgeMap as TLedge)
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -46,6 +46,7 @@ from somar_tpu_torch.driver import RunDriver as TDriver
 from somar_tpu_torch.io import checkpoint as tck
 from tests.test_driver_io import AMR_CFG, CFG
 from tests.test_torch_rk3 import DECKS
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -283,7 +284,7 @@ def test_amr_is_refused():
     GPU unless told otherwise) and its checkpoints carry the refined level
     (slice 10 ported them); at amr.maxlevel = 2 it builds the nested
     hierarchy and its checkpoints carry both refined levels (slice 11a);
-    what stays in slice 11 (refluxing) raises naming it."""
+    a refluxing deck builds a refluxing hierarchy (slice 11c)."""
     deck = AMR_CFG
     ctx = TContext.from_parmparse(TPP.from_string(deck))
     drv = TDriver(ctx, device="cpu")
@@ -298,8 +299,9 @@ def test_amr_is_refused():
     assert drv2.hierarchy.num_levels == 3
     ctx3 = TContext.from_parmparse(TPP.from_string(
         deck + "amr.advective_momentum_reflux = 1\n"))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        TDriver(ctx3, device="cpu")
+    drv3 = TDriver(ctx3, device="cpu")
+    assert drv3.hierarchy.reflux_fields == ("vel",)
+    assert drv3.hierarchy.couplings[0].flux_register is not None
     h = drv.hierarchy
     s0, fine, origin = entry.place_amr(h)
     c = h.couplings[0]

@@ -39,6 +39,7 @@ from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from somar_tpu_torch.problems.base import LinearProfile
 from somar_tpu_torch.projection.altered_metric import AlteredMetric
 from somar_tpu_torch.solvers.multigrid import LevelMultigrid, MGParams
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -52,6 +52,7 @@ from somar_tpu_torch.solvers.leptic import LevelLepticSolver as TLeptic
 from somar_tpu_torch.solvers.multigrid import LevelMultigrid as TMG
 from somar_tpu_torch.solvers.multigrid import MGParams as TMGParams
 from somar_tpu_torch.utils import subspace as tsub
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -26,6 +26,7 @@ from somar_tpu_torch.geometry.geo_source import StretchedCartesianMap
 from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from somar_tpu_torch.solvers import tridiag as ttri
 from somar_tpu_torch.solvers.poisson_op import PoissonOp as TOp
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -52,6 +52,7 @@ from somar_tpu_torch.projection.altered_metric import AlteredMetric
 from somar_tpu_torch.solvers.multigrid import semicoarsening_schedule
 from somar_tpu_torch.solvers.poisson_op import PoissonOp
 from somar_tpu_torch.utils import strat as tstrat
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

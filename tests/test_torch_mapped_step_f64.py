@@ -11,6 +11,7 @@ import torch
 
 from tests.test_torch_mapped_step import (NSTEPS, check_diagnostics,
                                           check_dt, check_step, trajectories)
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.multigrid import MGParams as TMG
 from somar_tpu_torch.solvers.parabolic import make_heat_solver as theat
 from somar_tpu_torch.solvers.poisson_op import PoissonOp as TOp
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -69,6 +69,7 @@ from somar_tpu_torch.solvers.host_reads import read_scalars
 from somar_tpu_torch.solvers.leptic import LepticParams as TLP
 from somar_tpu_torch.solvers.leptic import LevelLepticSolver as TLeptic
 from somar_tpu_torch.solvers.multigrid import MGParams as TMG
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from somar_tpu_torch.geometry.level_geometry import build_level_geometry
 from somar_tpu_torch.problems import TanhProfile, VortexStreet
 from somar_tpu_torch.problems.library import HorizConv
 from somar_tpu_torch.utils.strat import StructurePool as TPool
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from somar_tpu_torch.ops.stencil import cc_divergence as t_cc_div
 from somar_tpu_torch.physics import derived as tder
 from somar_tpu_torch.physics.navier_stokes import NSLevel as TLevel
 from somar_tpu_torch.physics.rk3 import advance_rk3 as t_rk3
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -189,7 +190,14 @@ def test_rk3_on_cpu_launches_no_kernel_and_rejects_amr():
     scale = max(float(out.vel[d].abs().max()) / tl.grid.dx[d]
                 for d in range(tl.grid.ndim))
     assert float(diag["max_mac_div"]) <= 1e-5 * scale, (diag, scale)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        t_rk3(tl, state, DT, rings={"mac": None})
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        t_rk3(tl, state, DT, collect={})
+    # the AMR arguments: no ring leaves the step as it is, and the flux
+    # collection returns the stages' weighted fluxes beside it
+    ringless = t_rk3(tl, state, DT, rings={"mac": None})
+    collect = {}
+    collected = t_rk3(tl, state, DT, collect=collect)
+    for f in entry.STATE_FIELDS:
+        assert torch.equal(getattr(ringless, f), getattr(out, f)), f
+        assert torch.equal(getattr(collected, f), getattr(out, f)), f
+    assert sorted(collect) == ["lam", "scalars", "vel"]
+    assert len(collect["vel"]) == len(collect["lam"]) == tl.grid.ndim
+    assert all(bool(torch.isfinite(f).all()) for f in collect["lam"])

@@ -39,6 +39,7 @@ from somar_tpu_torch.problems.base import SpongeSpec as TSponge
 from somar_tpu_torch.problems.base import TidalSpec as TTidal
 from somar_tpu_torch.problems.lock_exchange import LockExchange as TLock
 from somar_tpu_torch.problems.taylor_green import TaylorGreen as TTG
+from tests.torch_jax_reference import jax_unoptimized  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
